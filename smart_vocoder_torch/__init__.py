@@ -1,0 +1,12 @@
+"""SMART-Vocoder on PyTorch and CUDA (NVIDIA Hopper).
+
+The port of ``smart_vocoder_tpu``'s serving path: the same configs, parameter
+names and public shapes, with the decoder's two late MRF stages as
+hand-written CUDA kernels (``kernels/csrc``). It imports no JAX; the JAX
+package is the reference its tests hold it against.
+"""
+
+from smart_vocoder_torch.config import HParams, load_config
+from smart_vocoder_torch.inference import Vocoder
+
+__all__ = ["HParams", "Vocoder", "load_config"]

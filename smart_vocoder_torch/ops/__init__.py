@@ -1,0 +1,21 @@
+"""DSP and masking ops (counterpart of ``smart_vocoder_tpu/ops``)."""
+
+from smart_vocoder_torch.ops.melscale import mel_filterbank
+from smart_vocoder_torch.ops.segments import sequence_mask
+from smart_vocoder_torch.ops.stft import (
+    MelConfig,
+    mel_spectrogram,
+    spec_to_mel,
+    spectrogram,
+    stft_magnitude,
+)
+
+__all__ = [
+    "MelConfig",
+    "mel_filterbank",
+    "mel_spectrogram",
+    "sequence_mask",
+    "spec_to_mel",
+    "spectrogram",
+    "stft_magnitude",
+]
