@@ -3,9 +3,11 @@
 Counterpart of ``smart_vocoder_tpu/inference.py:Vocoder``: a weight-norm-folded
 ``SynthesizerTrn`` with bucketed padding, so arbitrary lengths map onto a
 bounded set of shapes. The serving path (``_apply_infer_fast``) runs the prior
-and the reverse flow through the module graph and the decoder through
-``kernels/decoder.py:decoder_apply``, whose last two stages are the
-hand-written CUDA kernels; ``_apply_infer`` is the plain module graph.
+and the reverse flow through the module graph, or with ``use_wn_kernels``
+through ``kernels/encoder.py:prior_flow_apply`` (every WN stack on the CUDA
+WN kernel), and the decoder through ``kernels/decoder.py:decoder_apply``,
+whose late stages are the hand-written CUDA kernels; ``_apply_infer`` is the
+plain module graph.
 """
 
 from __future__ import annotations
@@ -19,9 +21,10 @@ import torch
 
 from smart_vocoder_torch.config import HParams, load_config
 from smart_vocoder_torch.kernels.decoder import DecoderConfig, decoder_apply
+from smart_vocoder_torch.kernels.encoder import pack_prior_flow, prior_flow_apply
 from smart_vocoder_torch.models import build_synthesizer
 from smart_vocoder_torch.nn import fold_weight_norm
-from smart_vocoder_torch.ops import MelConfig, spec_to_mel, spectrogram
+from smart_vocoder_torch.ops import MelConfig, sequence_mask, spec_to_mel, spectrogram
 from smart_vocoder_torch.utils.torch_compat import load_reference_generator
 
 
@@ -45,12 +48,18 @@ class Vocoder:
                  dtype: torch.dtype = torch.bfloat16,
                  buckets: Sequence[int] = (64, 128, 256, 512, 1024, 2048, 4096),
                  fold: bool = True, use_kernels: bool | None = None,
-                 hifi: bool | int | None = None, device: str | torch.device | None = None):
+                 hifi: bool | int | None = None, device: str | torch.device | None = None,
+                 use_wn_kernels: bool | None = None):
         """``state_dict``: generator weights (folded or weight-normed), e.g.
         from ``state_dict_from_jax_params`` or a reference ``G_*.pth``.
         ``use_kernels`` defaults to the config's ``tpu.use_pallas``; ``hifi``
         to ``tpu.hifi_tail`` or level 2 (``True`` maps to 2), and applies only
-        to the kernel path in bf16."""
+        to the kernel path in bf16. ``use_wn_kernels`` (the JAX
+        ``use_pallas_wn``, default ``tpu.use_pallas_wn``) runs an
+        unconditioned request's prior and flow through ``prior_flow_apply``
+        in ``dtype`` -- also at hifi >= 2, where the module-graph prior would
+        be f32, as the JAX path does (inference.py:211); it needs ``fold``
+        and ``hidden_channels % 64 == 0``."""
         set_precision_flags()
         self.hps = hps
         self.device = torch.device(device if device is not None else
@@ -60,6 +69,10 @@ class Vocoder:
         if use_kernels is None:
             use_kernels = bool(hps.tpu.get("use_pallas", False))
         self.use_kernels = bool(use_kernels and fold and hps.model.resblock == "1")
+        if use_wn_kernels is None:
+            use_wn_kernels = bool(hps.tpu.get("use_pallas_wn", False))
+        self.use_wn_kernels = bool(use_wn_kernels and fold
+                                   and hps.model.hidden_channels % 64 == 0)
         if hifi is None:
             hifi = hps.tpu.get("hifi_tail", True)
         hifi = 2 * int(hifi) if isinstance(hifi, bool) else int(hifi)
@@ -75,9 +88,17 @@ class Vocoder:
         # the prior at hifi >= 2, which runs in f32 (inference.py:91-96).
         self.net = net if dtype == torch.float32 else copy.deepcopy(net).to(dtype)
         self.net_prior = net if self.hifi >= 2 else self.net
-        self.dec_params = {k[len("dec."):]: v for k, v in net.state_dict().items()
+        self.params = net.state_dict()  # folded f32 weights of the functional paths
+        self.dec_params = {k[len("dec."):]: v for k, v in self.params.items()
                            if k.startswith("dec.")}
         self.dec_cfg = DecoderConfig.from_hparams(hps)
+        m = hps.model
+        self.wn_sizes = dict(enc_layers=m.get("enc_layers", 16),
+                             flow_wn_layers=m.get("flow_wn_layers", 8), hidden=m.hidden_channels)
+        # the WN kernel's weight layout, made once rather than per request
+        self.wn_packed = (pack_prior_flow(self.params, **self.wn_sizes, dtype=dtype,
+                                          device=self.device)
+                          if self.use_wn_kernels else None)
 
     @classmethod
     def from_torch_checkpoint(cls, config_path: str, pth_path: str, **kw) -> "Vocoder":
@@ -110,8 +131,21 @@ class Vocoder:
 
     @torch.inference_mode()
     def _apply_infer_fast(self, mel, lengths, eps, noise_scale, sid=None):
-        z, _, g = self.net_prior.prior_latent(mel, lengths, eps, noise_scale, sid)
-        return decoder_apply(self.dec_params, z.transpose(1, 2), self.dec_cfg,
+        """The prior and flow on the WN kernel (unconditioned requests under
+        ``use_wn_kernels``) or the module graph; the decoder through
+        ``decoder_apply`` under ``use_kernels``, else the module graph."""
+        conditioned = self.net.emb_g is not None and sid is not None
+        if self.use_wn_kernels and not conditioned:
+            mask = sequence_mask(lengths, mel.shape[1])[..., None].to(self.dtype)
+            z = prior_flow_apply(self.params, mel, mask, eps, noise_scale, **self.wn_sizes,
+                                 dtype=self.dtype, packed=self.wn_packed)
+            g = None
+        else:
+            z, _, g = self.net_prior.prior_latent(mel, lengths, eps, noise_scale, sid)
+            z = z.transpose(1, 2)
+        if not self.use_kernels:
+            return self.net.dec(z.transpose(1, 2), g=g).transpose(1, 2)
+        return decoder_apply(self.dec_params, z, self.dec_cfg,
                              g=None if g is None else g.transpose(1, 2),
                              dtype=self.dtype, hifi_tail=self.hifi)
 
@@ -135,7 +169,8 @@ class Vocoder:
             eps = np.asarray(eps, np.float32)
             eps_t = torch.from_numpy(np.pad(eps, ((0, 0), (0, padded_t - eps.shape[1]), (0, 0))))
         dev = self.device
-        infer = self._apply_infer_fast if self.use_kernels else self._apply_infer
+        infer = (self._apply_infer_fast if self.use_kernels or self.use_wn_kernels
+                 else self._apply_infer)
         o = infer(torch.from_numpy(mel).to(dev),
                   torch.as_tensor(np.asarray(lengths), dtype=torch.int64, device=dev),
                   eps_t.to(dev), noise_scale,

@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels at first use and bind them with ctypes.
 
 ``nvcc`` compiles every ``csrc/*.cu`` of this package -- and nothing else --
-for ``sm_90a`` into a shared library with a plain C interface under
+for ``sm_90a``, one process per source, all started together, then links the
+objects into a shared library with a plain C interface under
 ``smart_vocoder_torch/_build/`` (git-ignored), named by a hash of the sources
 and flags, so an edited source rebuilds and an unchanged one loads at once.
 A failed build or load raises; nothing is downloaded.
@@ -21,7 +22,7 @@ _PKG = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "kernels" / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -30,7 +31,47 @@ _SIGNATURES = {
     # u, out, wup, bup, w, bias, wpost, B, Tu, Cin, C, kup, sup, pup, tile, H, kpost,
     # nb, k0..k2, np, d0..d2, mode, in_bf16, stream
     "svt_up_mrf_stage": [_P] * 7 + [_I] * 20 + [_P],
+    # x, out, s0, s1, acc, w, bias, B, T, C, tile, nb, k0..k2, np, d0..d2, is_bf16,
+    # n_launched (out), stream
+    "svt_mrf_stage_unpacked": [_P] * 7 + [_I] * 13 + [ctypes.POINTER(_I), _P],
+    # x, mask, x_out, skip, w_in, b_in, w_rs, b_rs, B, T, H, tile, n_layers,
+    # final_mask, is_bf16, stream
+    "svt_wn_stack": [_P] * 8 + [_I] * 7 + [_P],
 }
+
+SMEM_LIMIT = 232448  # bytes of dynamic shared memory a Hopper block may use
+
+
+def pick_tile(smem_bytes) -> int:
+    """The largest time tile (rows) whose ``smem_bytes(tile)`` fits in a block."""
+    for tile in (256, 128, 64, 32):
+        if smem_bytes(tile) <= SMEM_LIMIT:
+            return tile
+    raise ValueError("the kernel does not fit in shared memory at any tile size")
+
+
+# Kernel launches under each wrapper's name, counted where the wrapper calls
+# its entry point: one per call, or what the entry point reports it launched.
+LAUNCHES: dict[str, int] = {"mrf_stage": 0, "up_mrf_stage": 0, "mrf_stage_unpacked": 0,
+                            "wn_stack": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launch(name: str, fn, *args, launched: ctypes.c_int | None = None) -> None:
+    """Call the entry point ``fn`` on PyTorch's current stream (appended as
+    the last argument), raise on a refused launch, and count its kernels
+    under ``name``: one, or ``launched``, the entry point's own count, for
+    one that launches several."""
+    import torch
+
+    rc = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+    LAUNCHES[name] += 1 if launched is None else launched.value
 
 
 def _nvcc() -> str:
@@ -59,12 +100,28 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    nvcc, tag = _nvcc(), f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(_sources(), objs)]
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    log, failed = [], []
+    for src, proc in zip(_sources(), procs):
+        log.append(f"== {src.name}\n{proc.communicate()[0]}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        log.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append("link")
+    so.with_suffix(".log").write_text("".join(log))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n{''.join(log)[-4000:]}")
     os.replace(tmp, so)
     return so
 

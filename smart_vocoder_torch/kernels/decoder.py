@@ -12,6 +12,15 @@ lrelu -> transposed-conv upsample -> MRF -> lrelu(0.01) -> conv_post -> tanh
 whose channel counts the kernels are not built for, run cuDNN convolutions
 with the plain MRF (:func:`mrf_stage_reference`). At iitp_base these are
 stages 4 (64 -> 32 channels) and 3 (64 channels), the late narrow stages.
+
+``pallas_stage2=True`` is the JAX package's route of the same name
+(decoder.py:209-255, driven by scripts/exp_stage2_e2e.py): a stage of 64
+channels or fewer folds its upsample into :func:`up_mrf_stage` (stage 3 at
+iitp_base, 128 -> 64, with no tail), and a stage whose channels are a
+multiple of 128 and whose length is a multiple of 512 runs the unpacked MRF
+kernel (:func:`mrf_stage_unpacked`): stage 2 (128 channels) always, stage 1
+(256 channels) when 8 x frames is a multiple of 512 (the 1024-, 2048- and
+4096-frame buckets).
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from smart_vocoder_torch.kernels.mrf import (
     leaky_native,
     mrf_stage,
     mrf_stage_reference,
+    mrf_stage_unpacked,
     up_mrf_stage,
 )
 
@@ -98,7 +108,8 @@ def _stage_branches(params: Mapping[str, torch.Tensor], stage: int, num_kernels:
 
 def decoder_apply(params_dec: Mapping[str, torch.Tensor], x: torch.Tensor,
                   cfg: DecoderConfig, g: torch.Tensor | None = None,
-                  dtype=torch.bfloat16, hifi_tail: int = 0) -> torch.Tensor:
+                  dtype=torch.bfloat16, hifi_tail: int = 0,
+                  pallas_stage2: bool = False) -> torch.Tensor:
     """Folded decoder weights (the ``dec.`` state dict without its prefix) and
     latent ``x (B, T, C)`` -> waveform ``(B, T*hop, 1)``.
 
@@ -108,7 +119,9 @@ def decoder_apply(params_dec: Mapping[str, torch.Tensor], x: torch.Tensor,
     decoder (conv_pre, the cuDNN upsamples and MRF stages) in f32 activations
     with bf16-rounded operands; 3 also runs the second-to-last stage in F32
     mode (the JAX hi/lo split). The levels are meant for ``dtype=bfloat16``;
-    ``Vocoder`` sets 0 for float32."""
+    ``Vocoder`` sets 0 for float32. ``pallas_stage2``: the routing of the
+    module docstring; the folded-up stage before the last runs without the
+    tail and so without ``hifi``."""
     if cfg.resblock != "1":
         raise ValueError("the fast decoder supports ResBlock1 configs")
     num_kernels = len(cfg.resblock_kernel_sizes)
@@ -134,15 +147,25 @@ def decoder_apply(params_dec: Mapping[str, torch.Tensor], x: torch.Tensor,
         ch = cfg.upsample_initial_channel // (2 ** (i + 1))
         up_w, up_b = p[f"ups.{i}.weight"], p[f"ups.{i}.bias"]
         branches = _stage_branches(p, i, num_kernels, len(dil), dtype)
-        if i == n_stages - 1 and (2 * ch, ch) in UP_CHANNELS:
-            return up_mrf_stage(y.transpose(1, 2), up_w, up_b, k, u, (k - u) // 2,
-                                branches, ks, dil, post_weight=p["conv_post.weight"],
-                                hifi=hifi >= 1)
+        last = i == n_stages - 1
+        fold_up = ch <= 32 or (pallas_stage2 and ch <= 64)
+        if fold_up and (last or pallas_stage2) and (2 * ch, ch) in UP_CHANNELS:
+            y = up_mrf_stage(y.transpose(1, 2), up_w, up_b, k, u, (k - u) // 2,
+                             branches, ks, dil,
+                             post_weight=p["conv_post.weight"] if last else None,
+                             hifi=hifi >= 1 and last)
+            if last:
+                return y
+            y = y.transpose(1, 2)
+            continue
         y = _conv_transpose1d(leaky_native(y, LRELU_SLOPE), up_w, up_b, u, (k - u) // 2,
                               dtype, out_f32=early_f32)
         if i == n_stages - 2 and ch in MRF_CHANNELS:
             y = mrf_stage(y.transpose(1, 2).to(dtype), branches, ks, dil,
                           f32_storage=hifi >= 1, x2=hifi >= 3).transpose(1, 2)
+        elif pallas_stage2 and ch % 128 == 0 and y.shape[2] % 512 == 0:
+            y = mrf_stage_unpacked(y.transpose(1, 2).to(dtype), branches, ks,
+                                   dil).transpose(1, 2)
         else:
             y = mrf_stage_reference(y.transpose(1, 2), branches, ks, dil,
                                     mixed_f32=early_f32).transpose(1, 2)

@@ -6,20 +6,26 @@ for dilations d in (1, 3, 5) -- 18 convolutions for the 3 branches. Every
 intermediate is zeroed outside the real sequence ``[0, T)`` (the zero padding
 torch gives each conv at the true boundary).
 
-Two kernels, counterparts of the JAX package's Pallas kernels:
+Three kernels, counterparts of the JAX package's Pallas kernels:
 
 - :func:`mrf_stage` replaces ``smart_vocoder_tpu/kernels/mrf.py:
   fused_mrf_stage_packed`` (decoder stage 3);
-- :func:`up_mrf_stage` replaces ``fused_up_mrf_stage`` (decoder stage 4):
-  lrelu -> ConvTranspose1d upsample -> the MRF stage, optionally followed by
-  the decoder tail lrelu(0.01) -> conv_post -> tanh.
+- :func:`mrf_stage_unpacked` replaces ``fused_mrf_stage`` (the unpacked
+  stage in ``x.dtype``: stage 2, and stage 1 when its length allows, under
+  ``decoder_apply(pallas_stage2=True)``);
+- :func:`up_mrf_stage` replaces ``fused_up_mrf_stage`` (decoder stage 4, or
+  stage 3 under ``pallas_stage2``): lrelu -> ConvTranspose1d upsample -> the
+  MRF stage, optionally followed by the decoder tail lrelu(0.01) -> conv_post
+  -> tanh.
 
 They compute the *function* of the TPU kernels, not their block structure
 (space-to-depth packing, per-tap weights and the DMA'd mask are TPU lane
 tricks). Each wrapper launches its CUDA kernel (``csrc/mrf_stage.cu``) for a
 CUDA tensor, or raises; for a CPU tensor it runs the plain PyTorch version
 beside it (:func:`mrf_stage_plain`, :func:`up_mrf_stage_plain`), which the
-tests and ``chip_smoke.py`` hold the kernels against.
+tests and ``chip_smoke.py`` hold the kernels against. ``mrf_stage_unpacked``
+is ``fused_mrf_stage``'s contract, which is the BF16 mode for a bf16 ``x`` and
+the F32 mode for an f32 one, so its plain version is ``mrf_stage_plain``.
 
 Precision modes (one int flag of the kernels, mirrored by the plain
 versions, which compute in float32 and round explicitly where the JAX
@@ -42,10 +48,20 @@ them (``x.dtype`` for the MRF stage, bf16 under ``hifi`` for the up stage).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+# LAUNCHES / reset_launch_counts: the kernels' shared launch counts, re-exported here
+from smart_vocoder_torch.kernels._build import (  # noqa: F401
+    LAUNCHES,
+    SMEM_LIMIT,
+    launch,
+    load_library,
+    pick_tile,
+    reset_launch_counts,
+)
 
 LRELU_SLOPE = 0.1
 POST_SLOPE = 0.01  # decoder tail: torch's default leaky_relu slope (models.py:156)
@@ -56,17 +72,9 @@ BF16, F32_STORAGE, F32 = 0, 1, 2
 BranchWeights = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 # (w1 (n_pairs, k, C, C) [tap, in, out], b1 (n_pairs, C), w2 (same), b2 (same))
 
-# Launches of each CUDA kernel, counted by its wrapper where it launches.
-LAUNCHES: Dict[str, int] = {"mrf_stage": 0, "up_mrf_stage": 0}
-
-_SMEM_LIMIT = 232448  # bytes of dynamic shared memory a Hopper block may use
 MRF_CHANNELS = (32, 64)  # the kernels are instantiated for these channel counts
-UP_CHANNELS = ((64, 32),)  # (Cin, Cout)
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+UNPACKED_CHANNELS = (32, 64, 128, 256)
+UP_CHANNELS = ((64, 32), (128, 64))  # (Cin, Cout)
 
 
 def stage_radius(kernel_sizes: Sequence[int], dilations: Sequence[int] = DILATIONS) -> int:
@@ -232,23 +240,6 @@ def _branch_args(branches, kernel_sizes, dilations, device):
     return w, b, [len(branches), *ks, len(dilations), *ds]
 
 
-def _pick_tile(smem_bytes) -> int:
-    for tile in (256, 128, 64, 32):
-        if smem_bytes(tile) <= _SMEM_LIMIT:
-            return tile
-    raise ValueError("stage does not fit in shared memory at any tile size")
-
-
-def _stream() -> ctypes.c_void_p:
-    """PyTorch's current stream on the current device, for the launch."""
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
-
-
 def mrf_stage(x: torch.Tensor, branches: List[BranchWeights], kernel_sizes: Sequence[int],
               dilations: Sequence[int] = DILATIONS, f32_storage: bool = False,
               x2: bool = False) -> torch.Tensor:
@@ -265,25 +256,66 @@ def mrf_stage(x: torch.Tensor, branches: List[BranchWeights], kernel_sizes: Sequ
     if x.device.type == "cpu":
         return mrf_stage_plain(x, branches, kernel_sizes, dilations, mode)
 
-    from smart_vocoder_torch.kernels._build import load_library
-
     if c not in MRF_CHANNELS:
         raise ValueError(f"mrf_stage kernel: C={c} not in {MRF_CHANNELS}")
     if bsz > 65535:
         raise ValueError("mrf_stage kernel: batch above 65535")
     x = x.contiguous()
     radius = stage_radius(kernel_sizes, dilations)
-    tile = _pick_tile(lambda tl: 4 * (3 * (tl + 2 * radius) * (c + 1) + tl * c))
+    tile = pick_tile(lambda tl: 4 * (3 * (tl + 2 * radius) * (c + 1) + tl * c))
     w, b, ints = _branch_args(branches, kernel_sizes, dilations, x.device)
     out = torch.empty((bsz, t, c), device=x.device,
                       dtype=torch.bfloat16 if mode == BF16 else torch.float32)
-    lib = load_library()
     with torch.cuda.device(x.device):
-        rc = lib.svt_mrf_stage(x.data_ptr(), out.data_ptr(), w.data_ptr(), b.data_ptr(),
-                               bsz, t, c, tile, radius, *ints, mode,
-                               int(x.dtype == torch.bfloat16), _stream())
-    _raise_on(rc, "mrf_stage")
-    LAUNCHES["mrf_stage"] += 1
+        launch("mrf_stage", load_library().svt_mrf_stage, x.data_ptr(), out.data_ptr(),
+               w.data_ptr(), b.data_ptr(), bsz, t, c, tile, radius, *ints, mode,
+               int(x.dtype == torch.bfloat16))
+    return out
+
+
+def mrf_stage_unpacked(x: torch.Tensor, branches: List[BranchWeights],
+                       kernel_sizes: Sequence[int],
+                       dilations: Sequence[int] = DILATIONS) -> torch.Tensor:
+    """One MRF stage over ``x (B, T, C)`` in ``x.dtype`` (port of
+    ``fused_mrf_stage``, mrf.py:60-168): BF16 mode for a bf16 ``x`` (one
+    rounding after conv plus bias, bf16 leaky and residual, f32 branch mean),
+    F32 for an f32 one. Weights are rounded to ``x.dtype``; the output has
+    ``x.dtype``.
+
+    The CUDA kernel runs one residual pair of one branch per launch, over
+    time tiles with that pair's own halo, so its shared memory fits at
+    C = 256 (``csrc/mrf_stage.cu:svt_mrf_stage_unpacked``)."""
+    _check_input("mrf_stage_unpacked", x)
+    mode = BF16 if x.dtype == torch.bfloat16 else F32
+    branches = [tuple(_round_to(a, x.dtype) for a in br) for br in branches]
+    bsz, t, c = x.shape
+    _check_branches(branches, kernel_sizes, dilations, c)
+    if x.device.type == "cpu":
+        return mrf_stage_plain(x, branches, kernel_sizes, dilations, mode)
+
+    if c not in UNPACKED_CHANNELS:
+        raise ValueError(f"mrf_stage_unpacked kernel: C={c} not in {UNPACKED_CHANNELS}")
+    if bsz > 65535:
+        raise ValueError("mrf_stage_unpacked kernel: batch above 65535")
+    x = x.contiguous()
+    h = max((k - 1) // 2 for k in kernel_sizes)
+    halo = h * max(dilations) + 2 * h  # conv1's operand halo plus conv2's
+    elt = 2 if mode == BF16 else 4  # shared memory stores the mode's own type
+    tile = pick_tile(lambda tl: elt * (2 * tl + 2 * halo) * (c + 1))
+    w, b, ints = _branch_args(branches, kernel_sizes, dilations, x.device)
+    out = torch.empty_like(x)
+    n_pairs, n_branches = len(dilations), len(branches)
+    # ping-pong branch states and the f32 branch sum: only where the chain needs them
+    s0 = torch.empty_like(x) if n_pairs > 1 else out
+    s1 = torch.empty_like(x) if n_pairs > 2 else out
+    acc = (torch.empty((bsz, t, c), device=x.device, dtype=torch.float32)
+           if n_branches > 1 else out)
+    n = ctypes.c_int(0)  # one kernel per residual pair of each branch
+    with torch.cuda.device(x.device):
+        launch("mrf_stage_unpacked", load_library().svt_mrf_stage_unpacked, x.data_ptr(),
+               out.data_ptr(), s0.data_ptr(), s1.data_ptr(), acc.data_ptr(), w.data_ptr(),
+               b.data_ptr(), bsz, t, c, tile, *ints, int(mode == BF16), ctypes.byref(n),
+               launched=n)
     return out
 
 
@@ -320,8 +352,6 @@ def up_mrf_stage(u: torch.Tensor, up_weight: torch.Tensor, up_bias: torch.Tensor
         return up_mrf_stage_plain(u, up_weight, up_bias, up_stride, up_padding, branches,
                                   kernel_sizes, dilations, mode, post_weight)
 
-    from smart_vocoder_torch.kernels._build import load_library
-
     if (cin, cout) not in UP_CHANNELS:
         raise ValueError(f"up_mrf_stage kernel: (Cin, Cout)=({cin}, {cout}) not in {UP_CHANNELS}")
     if bsz > 65535:
@@ -335,10 +365,10 @@ def up_mrf_stage(u: torch.Tensor, up_weight: torch.Tensor, up_bias: torch.Tensor
         rows = tile + 2 * halo
         u_rows = (rows + up_kernel) // up_stride + 2
         if u_rows * (cin + 1) > 2 * rows * (cout + 1):  # u tile aliases two buffers
-            return _SMEM_LIMIT + 1
+            return SMEM_LIMIT + 1
         return 4 * (4 * rows * (cout + 1) + (tile + 2 * p_post) * cout)
 
-    tile = _pick_tile(smem)
+    tile = pick_tile(smem)
     w, b, ints = _branch_args(branches, kernel_sizes, dilations, u.device)
     wup = up_weight.permute(2, 0, 1).to(u.device, torch.float32).contiguous()  # (k, Cin, Cout)
     bup = up_bias.to(u.device, torch.float32).contiguous()
@@ -347,13 +377,9 @@ def up_mrf_stage(u: torch.Tensor, up_weight: torch.Tensor, up_bias: torch.Tensor
     t = tu * up_stride
     out_dtype = torch.bfloat16 if mode == BF16 else torch.float32
     out = torch.empty((bsz, t, 1 if k_post else cout), device=u.device, dtype=out_dtype)
-    lib = load_library()
     with torch.cuda.device(u.device):
-        rc = lib.svt_up_mrf_stage(u.data_ptr(), out.data_ptr(), wup.data_ptr(),
-                                  bup.data_ptr(), w.data_ptr(), b.data_ptr(), wpost.data_ptr(),
-                                  bsz, tu, cin, cout, up_kernel, up_stride, up_padding,
-                                  tile, halo, k_post, *ints, mode,
-                                  int(u.dtype == torch.bfloat16), _stream())
-    _raise_on(rc, "up_mrf_stage")
-    LAUNCHES["up_mrf_stage"] += 1
+        launch("up_mrf_stage", load_library().svt_up_mrf_stage, u.data_ptr(), out.data_ptr(),
+               wup.data_ptr(), bup.data_ptr(), w.data_ptr(), b.data_ptr(), wpost.data_ptr(),
+               bsz, tu, cin, cout, up_kernel, up_stride, up_padding, tile, halo, k_post,
+               *ints, mode, int(u.dtype == torch.bfloat16))
     return out

@@ -247,6 +247,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         tmrf.mrf_stage(torch.zeros(1, 64, 32, dtype=torch.float16), br, KS, DIL)
     with pytest.raises(ValueError):
         tmrf.mrf_stage(torch.zeros(1, 64, 16), br, KS, DIL)  # channels != weights
+    with pytest.raises(TypeError):
+        tmrf.mrf_stage_unpacked(torch.zeros(1, 64, 32, dtype=torch.float16), br, KS, DIL)
+    with pytest.raises(ValueError):
+        tmrf.mrf_stage_unpacked(torch.zeros(1, 64, 16), br, KS, DIL)
+    with pytest.raises(ValueError):  # one kernel size per branch
+        tmrf.mrf_stage_unpacked(torch.zeros(1, 64, 32), br, KS[:2], DIL)
     with pytest.raises(ValueError):  # output length would not be Tu * stride
         tmrf.up_mrf_stage(torch.zeros(1, 32, 64), torch.zeros(64, 32, 5), torch.zeros(32),
                           5, 2, 1, br, KS, DIL)

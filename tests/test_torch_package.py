@@ -105,6 +105,7 @@ def test_port_imports_no_jax():
         "        'smart_vocoder_torch.ops', 'smart_vocoder_torch.nn',\n"
         "        'smart_vocoder_torch.models', 'smart_vocoder_torch.kernels',\n"
         "        'smart_vocoder_torch.kernels.mrf', 'smart_vocoder_torch.kernels.decoder',\n"
+        "        'smart_vocoder_torch.kernels.wn_stack', 'smart_vocoder_torch.kernels.encoder',\n"
         "        'smart_vocoder_torch.kernels._build', 'smart_vocoder_torch.inference',\n"
         "        'smart_vocoder_torch.utils.torch_compat', 'smart_vocoder_torch.utils.init']\n"
         "for m in mods: importlib.import_module(m)\n"
