@@ -1,4 +1,5 @@
-"""Smoke run of the PyTorch port's serving path on one NVIDIA H100.
+"""Smoke run of the PyTorch port on one NVIDIA H100: the serving paths, the
+training-kernel A/B and the packed-MRF variants.
 
     python3 chip_smoke.py
 
@@ -14,7 +15,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    plain version's own state and skip sum; f32: the whole stack); the
    unpacked MRF stage at x (2, 64000, 128) and (1, 8192, 256); the stage-3
    fold-up u (2, 64000, 128) -> (2, 128000, 64) -- in the modes the serving
-   paths use, plus ragged lengths; prints both times.
+   paths use, plus ragged lengths; the options of the packed-MRF variants
+   (``mask_edges=False``, the bf16 output of f32_storage) at the stage-3
+   shapes; the Triton gate at x (32, 1000, 384) with g (32, 1, 384) and
+   without, and ragged; the MRF branch backward for k = 3, 7, 11 at the
+   training shapes (16, 256, 256), (16, 2048, 128), (16, 4096, 64), (16, 8192,
+   32) and a ragged length, in f32 and in bf16: the kernel's replay against
+   the plain replay, and its gradients against the plain backward on that
+   same replay (the leaky derivative jumps at 0, so on separate replays one
+   value within rounding noise of 0 moves a gradient entry by a whole term);
+   prints both times.
 4. slice: iitp_base at full width, weights from the port's seeded init,
    ``Vocoder.mel_to_wav`` on B=8 x 1000 frames plus one short request padded
    to the bucket, each path with the launch counts reset just before it:
@@ -27,7 +37,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
 5. timing: B=32 x 1000 frames (bench.py's protocol: warm-up, iterations,
    synchronize) for hifi 2, hifi 0, hifi 0 + WN kernels, the pallas_stage2
    route and the plain f32 path, and a profiler breakdown of the hifi-2 step
-   by kernel and of the two new paths.
+   by kernel and of the two WN / stage-2 paths.
+6. gate path: the 16 gates of the prior's WN layers under a speaker
+   conditioning, x (32, 1000, 384) + g (32, 1, 384) each, through
+   ``fused_gate``, against the module graph's ``gated_activation``.
+7. training-kernel A/B at full width (``tools/ab_mrf_train.py``): B = 16,
+   the four training shapes, bf16, ``mean(|stage(x)|)``; forward + backward
+   of cuDNN autograd against ``mrf_stage_train``, interleaved.
+8. variants (``tools/exp_mrf_variants.py``): stage 3, x (32, 128000, 64).
+
+Every kernel's record carries its bound: the larger of its operations over
+the card's peak for their type (989 TFLOP/s, bf16 tensor cores: every conv
+operand is a bf16 value, or a hi/lo pair of them in the F32 modes, which
+then count two passes) and its bytes (inputs read once, outputs written once)
+over 3.35 TB/s. No single PyTorch call computes an 18-conv stage, a WN stack,
+a branch backward or the gate, so ``library_ms`` is null throughout.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -112,6 +136,41 @@ def compare(name, got, want, exact, mode_f32: bool, ulp_slack: bool = False) -> 
     return err
 
 
+def compare_f32(name, got, want, tol: float) -> float:
+    """An f32 result against its plain version: max |diff| within ``tol`` of
+    the largest entry (f32 summation order, which for the weight gradients the
+    blocks' atomic adds change from run to run)."""
+    import torch
+
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise RuntimeError(f"{name}: bad output")
+    err, top = (got - want).abs().max().item(), want.abs().max().item()
+    ok = err <= tol * top
+    log(f"  {name}: max {err / top:.2e} of the largest entry (<= {tol:g}) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"{name}: kernel disagrees with its plain version")
+    return err
+
+
+PEAK_BF16 = 989e12  # FLOP/s, dense bf16 tensor cores (H100 SXM data sheet)
+HBM_RATE = 3.35e12  # bytes/s
+
+
+def bound(flops: float, tensors) -> dict:
+    """The least time the card could take: operations over the bf16 peak
+    against the bytes of ``tensors`` (each moved once) over the memory rate."""
+    t_ops = flops / PEAK_BF16 * 1e3
+    t_bytes = sum(t.numel() * t.element_size() for t in tensors) / HBM_RATE * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
+
+
+def mrf_flops(b: int, t: int, c: int, ks, n_pairs: int) -> float:
+    """One MRF stage: 2 convs per residual pair per branch, 2*k*C*C FLOP a row."""
+    return 2.0 * n_pairs * sum(2 * k for k in ks) * c * c * t * b
+
+
 def profile_step(label: str, fn, card: str, rows: int) -> None:
     """One step under torch.profiler: wall, device-busy share, top kernels."""
     import torch
@@ -144,6 +203,12 @@ def main() -> int:
     from smart_vocoder_torch.config import load_config
     from smart_vocoder_torch.inference import Vocoder, set_precision_flags
     from smart_vocoder_torch.kernels import mrf as K
+    from smart_vocoder_torch.kernels.gate import fused_gate, fused_gate_plain
+    from smart_vocoder_torch.kernels.mrf_train import (
+        branch_replay_plain,
+        mrf_branch_bwd,
+        mrf_branch_bwd_plain,
+    )
     from smart_vocoder_torch.kernels._build import build
     from smart_vocoder_torch.kernels.decoder import _stage_branches, decoder_apply
     from smart_vocoder_torch.kernels.wn_stack import (
@@ -155,7 +220,9 @@ def main() -> int:
         wn_stack_plain,
     )
     from smart_vocoder_torch.models import build_synthesizer
+    from smart_vocoder_torch.nn.wn import gated_activation
     from smart_vocoder_torch.ops import MelConfig, mel_spectrogram
+    from smart_vocoder_torch.tools import ab_mrf_train, exp_mrf_variants
     from smart_vocoder_torch.utils.init import init_synthesizer
 
     # 1. device
@@ -207,8 +274,34 @@ def main() -> int:
             if t == 128000 and mode == K.F32_STORAGE:
                 rec["ms"] = cuda_ms(lambda: K.mrf_stage(xb, br, ks, dil, **kw), 5)
                 rec["plain_ms"] = cuda_ms(lambda: K.mrf_stage_plain(xb, br, ks, dil, mode), 5)
+                rec.update(bound(mrf_flops(*x.shape, ks, len(dil)), [xb, got, *sum(br, ())]))
                 log(f"  mrf_stage {tuple(x.shape)} f32_storage: kernel {rec['ms']:.2f} ms, "
-                    f"plain {rec['plain_ms']:.2f} ms  [{card}]")
+                    f"plain {rec['plain_ms']:.2f} ms, bound {rec['bound_ms']:.3f} ms  [{card}]")
+        # the options of the packed-MRF variants, each against its plain version
+        for label, mode, kw in (("nomask", K.BF16, {"mask_edges": False}),
+                                ("f32acc", K.F32_STORAGE, {"f32_storage": True,
+                                                           "out_dtype": torch.bfloat16}),
+                                ("all_f32", K.F32_STORAGE, {"mask_edges": False,
+                                                            "f32_storage": True,
+                                                            "out_dtype": torch.bfloat16})):
+            mask_edges = kw.get("mask_edges", True)
+            got = K.mrf_stage(xb, br, ks, dil, **kw)
+            want = K.mrf_stage_plain(xb, br, ks, dil, mode, mask_edges, True)
+            exact_v = K.mrf_stage_plain(xb, br, ks, dil, K.F32, mask_edges)
+            if got.dtype != torch.bfloat16:
+                raise RuntimeError(f"mrf_stage {label}: output {got.dtype}")
+            err = compare(f"mrf_stage {tuple(x.shape)} {label}", got, want, exact_v, False,
+                          ulp_slack=True)
+            rec = records.setdefault("mrf_stage_variant", {"max_abs_err": 0.0})
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            if t == 128000 and label == "nomask":
+                rec["ms"] = cuda_ms(lambda: K.mrf_stage(xb, br, ks, dil, **kw), 5)
+                rec["plain_ms"] = cuda_ms(
+                    lambda: K.mrf_stage_plain(xb, br, ks, dil, mode, mask_edges, True), 5)
+                rec.update(bound(mrf_flops(*x.shape, ks, len(dil)), [xb, got, *sum(br, ())]))
+                log(f"  mrf_stage {tuple(x.shape)} nomask: kernel {rec['ms']:.2f} ms, "
+                    f"plain {rec['plain_ms']:.2f} ms, bound {rec['bound_ms']:.3f} ms  [{card}]")
+        del exact_v
         u = x  # stage 4 input: (B, Tu, 64) -> (B, 2*Tu, 1)
         up_w, up_b = dec["ups.3.weight"], dec["ups.3.bias"]
         post = dec["conv_post.weight"]
@@ -230,8 +323,13 @@ def main() -> int:
                 rec["ms"] = cuda_ms(lambda: K.up_mrf_stage(
                     uu, args[0], args[1], 4, 2, 1, brr, ks, dil, post_weight=pw, hifi=True), 5)
                 rec["plain_ms"] = cuda_ms(lambda: K.up_mrf_stage_plain(uu, *args, mode, pw), 5)
+                # hifi: f32 activations as hi + lo bf16 pairs, so two tensor-core passes
+                b_, tu_, cin_ = uu.shape
+                flops = 2 * (mrf_flops(b_, 2 * tu_, 32, ks, len(dil))
+                             + 2.0 * 4 * cin_ * 32 * tu_ * b_ + 2.0 * 7 * 32 * 2 * tu_ * b_)
+                rec.update(bound(flops, [uu, got, args[0], pw, *sum(brr, ())]))
                 log(f"  up_mrf_stage {tuple(uu.shape)} hifi+post: kernel {rec['ms']:.2f} ms, "
-                    f"plain {rec['plain_ms']:.2f} ms  [{card}]")
+                    f"plain {rec['plain_ms']:.2f} ms, bound {rec['bound_ms']:.3f} ms  [{card}]")
         del x, xb, u, exact
 
     def record(name, err):
@@ -257,12 +355,14 @@ def main() -> int:
             if shape == (2, 64000, 128):
                 rec["ms"] = cuda_ms(lambda: K.mrf_stage_unpacked(xd, br, ks, dil), 3)
                 rec["plain_ms"] = cuda_ms(lambda: K.mrf_stage_plain(xd, br, ks, dil, mode), 3)
-                log(f"  {tag}: kernel {rec['ms']:.2f} ms, plain {rec['plain_ms']:.2f} ms  "
-                    f"[{card}]")
+                rec.update(bound(mrf_flops(*shape, ks, len(dil)), [xd, got, *sum(br, ())]))
+                log(f"  {tag}: kernel {rec['ms']:.2f} ms, plain {rec['plain_ms']:.2f} ms, "
+                    f"bound {rec['bound_ms']:.3f} ms  [{card}]")
             elif shape[2] == 256:
+                bnd = bound(mrf_flops(*shape, ks, len(dil)), [xd, got, *sum(br, ())])
                 log(f"  {tag}: kernel {cuda_ms(lambda: K.mrf_stage_unpacked(xd, br, ks, dil), 3):.2f}"
                     f" ms, plain {cuda_ms(lambda: K.mrf_stage_plain(xd, br, ks, dil, mode), 3):.2f}"
-                    f" ms  [{card}]")
+                    f" ms, bound {bnd['bound_ms']:.3f} ms  [{card}]")
         del x, xd, got, want, exact
     up_w, up_b = dec["ups.2.weight"], dec["ups.2.bias"]
     for tu in (64000, 4321):
@@ -277,7 +377,10 @@ def main() -> int:
         if tu == 64000:
             ms = cuda_ms(lambda: K.up_mrf_stage(ub, args[0], args[1], 4, 2, 1, brr, ks, dil), 3)
             plain = cuda_ms(lambda: K.up_mrf_stage_plain(ub, *args, K.BF16), 3)
-            log(f"  {tag}: kernel {ms:.2f} ms, plain {plain:.2f} ms  [{card}]")
+            bnd = bound(mrf_flops(2, 2 * tu, 64, ks, len(dil)) + 2.0 * 4 * 128 * 64 * tu * 2,
+                        [ub, got, args[0], *sum(brr, ())])
+            log(f"  {tag}: kernel {ms:.2f} ms, plain {plain:.2f} ms, bound "
+                f"{bnd['bound_ms']:.3f} ms  [{card}]")
         del u, ub, got, want, exact
 
     # the WN stack: the 16 prior layers of the seeded weights. In bf16 a
@@ -321,8 +424,100 @@ def main() -> int:
                 log(f"  wn_stack {tuple(x.shape)} x{len(enc_layers)} layers "
                     f"{'bf16' if bf else 'f32'}: kernel {ms:.2f} ms, plain {plain:.2f} ms  [{card}]")
                 if bf:
-                    records["wn_stack"]["ms"], records["wn_stack"]["plain_ms"] = ms, plain
+                    n_l = len(enc_layers)  # k=5 conv H -> 2H, then 1x1 to 2H (H in the last)
+                    flops = 2.0 * b * t * hidden * hidden * (12 * n_l - 1)
+                    records["wn_stack"].update(
+                        ms=ms, plain_ms=plain,
+                        **bound(flops, [xd, mask, xd, *sum(enc_layers, ())]))
         del x, xb, carry, skip, got, want, exact
+
+    # the Triton gate: f32 within 1e-6 (exp and the divisions round differently
+    # from torch's tanh and sigmoid); bf16 equal but for one ulp of the output
+    def check_gate(x, g):
+        got, want = fused_gate(x, g), fused_gate_plain(x, g)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != x.dtype or not torch.isfinite(got).all():
+            raise RuntimeError(f"fused_gate {tuple(x.shape)}: bad output")
+        diff = (got.float() - want.float()).abs()
+        tol = (torch.full_like(diff, 1e-6) if x.dtype == torch.float32
+               else want.float().abs().clamp_min(2.0 ** -126) * 2.0 ** -7)
+        err = diff.max().item()
+        ok = bool((diff <= tol).all())
+        gs = "none" if g is None else tuple(g.shape)
+        log(f"  fused_gate {tuple(x.shape)} g {gs} {str(x.dtype)[6:]}: max {err:.3e} "
+            f"({'<= 1e-6' if x.dtype == torch.float32 else 'within one bf16 ulp'}) -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("fused_gate disagrees with its plain version")
+        return record("fused_gate", err), got
+
+    for shape, gshape in (((32, 1000, 384), (32, 1, 384)), ((32, 1000, 384), None),
+                          ((3, 777, 130), (3, 777, 130)), ((5, 62), (62,))):
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.from_numpy(rng.normal(0, 2, shape).astype(np.float32)).to(dev, dt)
+            g = (None if gshape is None else
+                 torch.from_numpy(rng.normal(0, 1, gshape).astype(np.float32)).to(dev, dt))
+            rec, got = check_gate(x, g)
+            if gshape == (32, 1, 384) and dt == torch.bfloat16:
+                rec["ms"] = cuda_ms(lambda: fused_gate(x, g), 20)
+                rec["plain_ms"] = cuda_ms(lambda: fused_gate_plain(x, g), 20)
+                rec.update(bound(12.0 * got.numel(), [x, g, got]))
+                log(f"  fused_gate {shape} bf16: kernel {rec['ms']:.4f} ms, plain "
+                    f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms  [{card}]")
+
+    # the MRF branch backward at the training shapes (B = 16 segments of 32
+    # frames) and a ragged length. The replay (x_j, h_j) is held to the plain
+    # replay, then dx and the four weight gradients to the plain backward on
+    # the kernel's own replay, so both take the same arm of the leaky
+    # derivative everywhere. f32: replay within 1e-4 and gradients within 1e-3
+    # of their largest entry. bf16: through `compare`, with the f32 plain
+    # version on the same bf16 values (and the same replay) as `exact`.
+    parts = ("dx", "dw1", "db1", "dw2", "db2")
+    for stage, shape in ((0, (16, 256, 256)), (1, (16, 2048, 128)), (2, (16, 4096, 64)),
+                         (3, (16, 8192, 32)), (2, (2, 1237, 64))):
+        x = torch.from_numpy(rng.normal(0, 0.5, shape).astype(np.float32)).to(dev)
+        g = torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(dev)
+        for dt in (torch.float32, torch.bfloat16):
+            xd, gd, br = x.to(dt), g.to(dt), stage_branches(stage, dt)
+            for branch, k in zip(br, ks):
+                tag = f"mrf_branch_bwd {shape} k={k} {str(dt)[6:]}"
+                dx, dws, replay = mrf_branch_bwd(xd, gd, branch, k, dil, with_replay=True)
+                torch.cuda.synchronize()
+                wdx, wdws = mrf_branch_bwd_plain(xd, gd, branch, k, dil, replay)
+                got = list(zip(parts, (dx, *dws), (wdx, *wdws)))
+                want_replay = branch_replay_plain(xd, branch, k, dil)
+                steps = [(f"{n}_{j}", a, w) for n, vs, ws in zip("xh", replay, want_replay)
+                         for j, (a, w) in enumerate(zip(vs, ws)) if n == "h" or j > 0]
+                if dt == torch.float32:
+                    for part, a, w in steps:
+                        compare_f32(f"{tag} replay {part}", a, w, 1e-4)
+                    for part, a, w in got:
+                        record("mrf_branch_bwd", compare_f32(f"{tag} {part}", a, w, 1e-3))
+                else:
+                    exact_replay = branch_replay_plain(xd.float(), branch, k, dil)
+                    exact = [e for n, es in zip("xh", exact_replay)
+                             for j, e in enumerate(es) if n == "h" or j > 0]
+                    for (part, a, w), e in zip(steps, exact):
+                        compare(f"{tag} replay {part}", a, w, e, False, ulp_slack=True)
+                    edx, edws = mrf_branch_bwd_plain(xd.float(), gd.float(), branch, k, dil,
+                                                     [[v.float() for v in vs] for vs in replay])
+                    for (part, a, w), e in zip(got, (edx, *edws)):
+                        record("mrf_branch_bwd",
+                               compare(f"{tag} {part}", a, w, e, False, ulp_slack=True))
+            if shape == (16, 2048, 128) and dt == torch.bfloat16:
+                rec = records["mrf_branch_bwd"]
+                rec["ms"] = cuda_ms(lambda: [mrf_branch_bwd(xd, gd, b_, k, dil)
+                                             for b_, k in zip(br, ks)], 3)
+                rec["plain_ms"] = cuda_ms(lambda: [mrf_branch_bwd_plain(xd, gd, b_, k, dil)
+                                                   for b_, k in zip(br, ks)], 3)
+                # per branch: 5 replayed convs, 6 dx convs, 6 dw products
+                flops = 17 / 6 * mrf_flops(*shape, ks, len(dil))
+                rec.update(bound(flops, [xd, gd] * len(ks) + [xd] * len(ks)
+                                 + [a for b_ in br for a in b_] * 2))
+                log(f"  mrf_branch_bwd {shape} bf16, the three branches: kernel {rec['ms']:.2f} "
+                    f"ms, plain {rec['plain_ms']:.2f} ms, bound {rec['bound_ms']:.3f} ms  "
+                    f"[{card}]")
+        del x, g, xd, gd, dx, dws, wdx, wdws, replay, want_replay, steps, got
 
     # 4. the slice at full width
     n_mels, inter = hps.data.n_mel_channels, hps.model.inter_channels
@@ -436,8 +631,10 @@ def main() -> int:
     for label, fn, iters in (("hifi2", step(vocoder_hifi2), 3), ("hifi0", step(vocoder_hifi0), 3),
                              ("hifi0_wn", step(vocoder_wn0), 3), ("pallas_stage2", stage2_step, 2),
                              ("plain_f32", step(vocoder_f32), 3)):
+        K.reset_launch_counts()
         fn(mel32, lens32, eps32)
         torch.cuda.synchronize()
+        per_step = {k: v for k, v in K.LAUNCHES.items() if v}
         t0 = time.perf_counter()
         for _ in range(iters):
             fn(mel32, lens32, eps32)
@@ -445,13 +642,79 @@ def main() -> int:
         ms = (time.perf_counter() - t0) / iters * 1e3
         steps[label] = ms
         log(f"timing {label}: {ms:.1f} ms/step for B={b} x {frames} frames = "
-            f"{audio_s / (ms / 1e3):.1f}x real time  [{card}]")
+            f"{audio_s / (ms / 1e3):.1f}x real time, kernel launches per step {per_step}  "
+            f"[{card}]")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 
     for label, fn, rows in (("hifi 2", step(vocoder_hifi2), 20),
                             ("hifi 0 + WN kernels", step(vocoder_wn0), 8),
                             ("pallas_stage2", stage2_step, 8)):
         profile_step(label, lambda: fn(mel32, lens32, eps32), card, rows)
+
+    # 6. gate path: the gates of the prior's 16 WN layers under a speaker
+    # conditioning, as a conditioned WN would run them; held to the module
+    # graph's bf16 gate, which rounds after the add, tanh, sigmoid and product
+    # (a few bf16 ulps of an output below 1)
+    xh = torch.from_numpy(rng.normal(0, 1, (b, hidden, frames)).astype(np.float32))
+    xh = xh.to(dev, torch.bfloat16)
+    cond = torch.from_numpy(rng.normal(0, 0.5, (b, len(enc_layers) * 2 * hidden, 1))
+                            .astype(np.float32)).to(dev, torch.bfloat16)
+    K.reset_launch_counts()
+    worst = 0.0
+    with torch.inference_mode():
+        for i, (w_in, b_in, _, _) in enumerate(enc_layers):
+            pre = torch.nn.functional.conv1d(xh, w_in.bfloat16(), b_in.bfloat16(), padding=2)
+            g_l = cond[:, i * 2 * hidden:(i + 1) * 2 * hidden]
+            acts = fused_gate(pre.transpose(1, 2).contiguous(), g_l.transpose(1, 2))
+            want = gated_activation(pre, g_l).transpose(1, 2)
+            if acts.shape != want.shape or not torch.isfinite(acts).all():
+                raise RuntimeError(f"gate path, layer {i}: bad output {tuple(acts.shape)}")
+            worst = max(worst, (acts.float() - want.float()).abs().max().item())
+    torch.cuda.synchronize()
+    launches_gate = dict(K.LAUNCHES)
+    log(f"gate path: {len(enc_layers)} conditioned WN gates at x {(b, frames, 2 * hidden)}, "
+        f"launches {launches_gate}, max |fused - module gate| {worst:.3e} (bound 3.2e-2)")
+    if launches_gate["fused_gate"] != len(enc_layers) or not worst <= 2.0 ** -5:
+        raise RuntimeError("gate path: fused_gate did not launch once per layer or disagrees "
+                           "with the module graph's gate")
+
+    # 7. training-kernel A/B at full width: iitp_base's training shapes
+    if hps.train.batch_size != ab_mrf_train.B:
+        raise RuntimeError("the A/B batch is not the config's batch_size")
+    log(f"training-kernel A/B (cuDNN autograd vs mrf_stage_train)  [{card}]")
+    K.reset_launch_counts()
+    ab_rows = ab_mrf_train.main(reps=3, iters=10, device=dev)
+    torch.cuda.synchronize()
+    launches_ab = dict(K.LAUNCHES)
+    log(f"training-kernel A/B: launches {launches_ab}")
+    per_step = len(ks) * len(dil)  # forward: one kernel per pair; backward: two
+    for row in ab_rows:
+        if row["launches"] != {"mrf_stage_unpacked": per_step, "mrf_branch_bwd": 2 * per_step}:
+            raise RuntimeError(f"A/B stage {row['stage']}: launches {row['launches']}")
+        if not all(np.isfinite(row[key]) for key in ("autograd_ms", "kernel_ms", "loss_kernel",
+                                                     "dx_rel_rms", "dw_rel_rms",
+                                                     "autograd_busy_ms", "kernel_busy_ms")):
+            raise RuntimeError(f"A/B stage {row['stage']}: {row}")
+        # the two legs compute one loss: bf16 rounding moves it in the 4th digit
+        if abs(row["loss_kernel"] - row["loss_autograd"]) > 1e-2 * abs(row["loss_autograd"]):
+            raise RuntimeError(f"A/B stage {row['stage']}: losses differ: {row}")
+    if not (launches_ab["mrf_branch_bwd"] > 0 and launches_ab["mrf_stage_unpacked"] > 0):
+        raise RuntimeError(f"the kernel leg did not launch: {launches_ab}")
+
+    # 8. the packed-MRF variants at the stage-3 serving shape
+    K.reset_launch_counts()
+    variants = exp_mrf_variants.main(stage=3, iters=3, device=dev)
+    torch.cuda.synchronize()
+    launches_var = dict(K.LAUNCHES)
+    log(f"variants: launches {launches_var}  [{card}]")
+    if launches_var["mrf_stage_variant"] == 0 or launches_var["mrf_stage"] == 0:
+        raise RuntimeError(f"the variants did not launch: {launches_var}")
+    if not all(np.isfinite(v["ms"]) and np.isfinite(v["chk"]) for v in variants.values()):
+        raise RuntimeError(f"variants: {variants}")
+    # masking changes the edges only, and the bf16 output of f32 storage moves
+    # each value by under one bf16 rounding
+    if variants["base"]["chk_central"] != variants["nomask"]["chk_central"]:
+        raise RuntimeError(f"nomask differs from base beyond one radius of the ends: {variants}")
 
     kernels = [
         {"name": "mrf_stage", "route": "cuda",
@@ -470,7 +733,24 @@ def main() -> int:
          "source": "smart_vocoder_torch/kernels/csrc/wn_stack.cu",
          "replaces": "smart_vocoder_tpu/kernels/wn_stack.py:132",
          "launches": launches_wn["wn_stack"], **records["wn_stack"]},
+        {"name": "fused_gate", "route": "triton",
+         "source": "smart_vocoder_torch/kernels/gate.py",
+         "replaces": "smart_vocoder_tpu/kernels/gate.py:23",
+         "launches": launches_gate["fused_gate"], **records["fused_gate"]},
+        {"name": "mrf_branch_bwd", "route": "cuda",
+         "source": "smart_vocoder_torch/kernels/csrc/mrf_train.cu",
+         "replaces": "smart_vocoder_tpu/kernels/mrf_train.py:195",
+         "launches": launches_ab["mrf_branch_bwd"], **records["mrf_branch_bwd"]},
+        {"name": "mrf_stage_variant", "route": "cuda",
+         "source": "smart_vocoder_torch/kernels/csrc/mrf_stage.cu",
+         "replaces": "scripts/exp_mrf_variants.py:159",
+         "launches": launches_var["mrf_stage_variant"], **records["mrf_stage_variant"]},
     ]
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms"}
+    for rec in kernels:
+        if set(rec) != keys or rec["launches"] <= 0:
+            raise RuntimeError(f"incomplete kernel record: {rec}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

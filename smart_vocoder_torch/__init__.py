@@ -2,8 +2,11 @@
 
 The port of ``smart_vocoder_tpu``'s serving path: the same configs, parameter
 names and public shapes, with the decoder's two late MRF stages as
-hand-written CUDA kernels (``kernels/csrc``). It imports no JAX; the JAX
-package is the reference its tests hold it against.
+hand-written CUDA kernels (``kernels/csrc``), and of its other TPU kernels
+(the WN stack, the unpacked MRF stage, the MRF stage with a hand-written
+backward, the fused gate, the packed-MRF variants), each with the entry point
+that runs it (``kernels/__init__.py``, ``tools/``). It imports no JAX; the
+JAX package is the reference its tests hold it against.
 """
 
 from smart_vocoder_torch.config import HParams, load_config

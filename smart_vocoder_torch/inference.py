@@ -25,6 +25,7 @@ from smart_vocoder_torch.kernels.encoder import pack_prior_flow, prior_flow_appl
 from smart_vocoder_torch.models import build_synthesizer
 from smart_vocoder_torch.nn import fold_weight_norm
 from smart_vocoder_torch.ops import MelConfig, sequence_mask, spec_to_mel, spectrogram
+from smart_vocoder_torch.utils.device import resolve_device
 from smart_vocoder_torch.utils.torch_compat import load_reference_generator
 
 
@@ -54,7 +55,9 @@ class Vocoder:
         from ``state_dict_from_jax_params`` or a reference ``G_*.pth``.
         ``use_kernels`` defaults to the config's ``tpu.use_pallas``; ``hifi``
         to ``tpu.hifi_tail`` or level 2 (``True`` maps to 2), and applies only
-        to the kernel path in bf16. ``use_wn_kernels`` (the JAX
+        to the kernel path in bf16. ``device`` defaults to the CUDA card and
+        raises where there is none; the CPU only with ``device="cpu"``.
+        ``use_wn_kernels`` (the JAX
         ``use_pallas_wn``, default ``tpu.use_pallas_wn``) runs an
         unconditioned request's prior and flow through ``prior_flow_apply``
         in ``dtype`` -- also at hifi >= 2, where the module-graph prior would
@@ -62,8 +65,7 @@ class Vocoder:
         and ``hidden_channels % 64 == 0``."""
         set_precision_flags()
         self.hps = hps
-        self.device = torch.device(device if device is not None else
-                                   ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = resolve_device(device)
         self.mel_cfg = MelConfig.from_hparams(hps)
         self.buckets = sorted(buckets)
         if use_kernels is None:
@@ -102,7 +104,9 @@ class Vocoder:
 
     @classmethod
     def from_torch_checkpoint(cls, config_path: str, pth_path: str, **kw) -> "Vocoder":
-        """Load a reference ``G_*.pth`` (notebook cell 3)."""
+        """Load a reference ``G_*.pth`` (notebook cell 3); ``device`` as in
+        ``__init__`` (the checkpoint itself is read on the CPU)."""
+        kw["device"] = resolve_device(kw.get("device"))  # before any file is read
         hps = load_config(config_path)
         net = build_synthesizer(hps)
         load_reference_generator(pth_path, net)

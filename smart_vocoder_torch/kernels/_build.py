@@ -1,10 +1,11 @@
 """Build the package's CUDA kernels at first use and bind them with ctypes.
 
-``nvcc`` compiles every ``csrc/*.cu`` of this package -- and nothing else --
-for ``sm_90a``, one process per source, all started together, then links the
-objects into a shared library with a plain C interface under
-``smart_vocoder_torch/_build/`` (git-ignored), named by a hash of the sources
-and flags, so an edited source rebuilds and an unchanged one loads at once.
+``nvcc`` compiles every ``csrc/*.cu`` of this package (with the ``*.cuh``
+headers beside them) -- and nothing else -- for ``sm_90a``, one process per
+source, all started together, then links the objects into a shared library
+with a plain C interface under ``smart_vocoder_torch/_build/`` (git-ignored),
+named by a hash of the sources, headers and flags, so an edited source
+rebuilds and an unchanged one loads at once.
 A failed build or load raises; nothing is downloaded.
 """
 
@@ -26,8 +27,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # x, out, w, bias, B, T, C, tile, R, nb, k0..k2, np, d0..d2, mode, in_bf16, stream
-    "svt_mrf_stage": [_P] * 4 + [_I] * 15 + [_P],
+    # x, out, w, bias, B, T, C, tile, R, nb, k0..k2, np, d0..d2, mode, in_bf16,
+    # mask_edges, out_bf16, stream
+    "svt_mrf_stage": [_P] * 4 + [_I] * 17 + [_P],
     # u, out, wup, bup, w, bias, wpost, B, Tu, Cin, C, kup, sup, pup, tile, H, kpost,
     # nb, k0..k2, np, d0..d2, mode, in_bf16, stream
     "svt_up_mrf_stage": [_P] * 7 + [_I] * 20 + [_P],
@@ -37,6 +39,9 @@ _SIGNATURES = {
     # x, mask, x_out, skip, w_in, b_in, w_rs, b_rs, B, T, H, tile, n_layers,
     # final_mask, is_bf16, stream
     "svt_wn_stack": [_P] * 8 + [_I] * 7 + [_P],
+    # x, g, dx, xs, hs, dtmp, w1, b1, w2, b2, w1f, w2f, dw1, db1, dw2, db2, B, T, C,
+    # tile, k, np, d0..d2, is_bf16, n_launched (out), stream
+    "svt_mrf_branch_bwd": [_P] * 16 + [_I] * 10 + [ctypes.POINTER(_I), _P],
 }
 
 SMEM_LIMIT = 232448  # bytes of dynamic shared memory a Hopper block may use
@@ -51,9 +56,11 @@ def pick_tile(smem_bytes) -> int:
 
 
 # Kernel launches under each wrapper's name, counted where the wrapper calls
-# its entry point: one per call, or what the entry point reports it launched.
+# its entry point: one per call, or what the entry point reports it launched
+# ("mrf_stage_variant": mrf_stage with an option of the A/B variants set).
 LAUNCHES: dict[str, int] = {"mrf_stage": 0, "up_mrf_stage": 0, "mrf_stage_unpacked": 0,
-                            "wn_stack": 0}
+                            "wn_stack": 0, "fused_gate": 0, "mrf_branch_bwd": 0,
+                            "mrf_stage_variant": 0}
 
 
 def reset_launch_counts() -> None:
@@ -93,7 +100,7 @@ def build() -> Path:
     """Compile the sources unless the library for their hash exists; the
     compiler's report (registers, shared memory, spills) goes to a .log beside it."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(SRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     so = BUILD_DIR / f"libsvt_kernels_{h.hexdigest()[:16]}.so"

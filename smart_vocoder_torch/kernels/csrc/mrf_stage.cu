@@ -37,125 +37,17 @@
 //   1 F32_STORAGE  f32 storage and output; each conv operand rounded to bf16.
 //   2 F32          no activation rounding (the JAX f32 and hi/lo modes).
 // Weights and biases arrive already rounded by the wrapper, as f32.
+//
+// svt_mrf_stage takes two more options, the functions of the packed-MRF A/B
+// variants (scripts/exp_mrf_variants.py:fused_variant): mask_edges = 0 drops
+// the zeroing outside [0, T) after each conv ("nomask": the chain runs on the
+// zero-extended input, so biases leak in from the padding within one radius
+// of the ends), and out_bf16 = 1 under F32_STORAGE rounds the stage output to
+// bf16 ("f32acc": f32 chain state, bf16 conv operands, bf16 output).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
-#include <type_traits>
+#include "mrf_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kRM = 8;  // output rows per thread per pass
-constexpr int kCM = 4;  // output channels per thread (one float4 of weights)
-constexpr int kBF16 = 0, kF32Storage = 1;
-
-__device__ __forceinline__ float rbf(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// max(v, slope * v); in bf16 mode the slope and the product are bf16, as JAX
-// evaluates `x * 0.1` on a bf16 array.
-__device__ __forceinline__ float leaky(float v, float slope, int mode) {
-  return mode == kBF16 ? fmaxf(v, rbf(v * rbf(slope))) : fmaxf(v, v * slope);
-}
-
-// The conv operand lrelu(v) of a stored value v.
-__device__ __forceinline__ float operand(float v, int mode) {
-  const float a = leaky(v, 0.1f, mode);
-  return mode == kF32Storage ? rbf(a) : a;
-}
-
-__device__ __forceinline__ float store(float v, int mode) {
-  return mode == kBF16 ? rbf(v) : v;
-}
-
-__device__ __forceinline__ float load_act(const void* p, size_t i, int is_bf16) {
-  return is_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-                 : static_cast<const float*>(p)[i];
-}
-
-__device__ __forceinline__ void store_out(void* p, size_t i, float v, int is_bf16) {
-  if (is_bf16) {
-    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
-  } else {
-    static_cast<float*>(p)[i] = v;
-  }
-}
-
-__device__ __forceinline__ int floor_div(int a, int b) {
-  return a >= 0 ? a / b : -((-a + b - 1) / b);
-}
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename St>
-__device__ __forceinline__ St from_f(float v) {
-  if constexpr (std::is_same<St, float>::value) {
-    return v;
-  } else {
-    return __float2bfloat16_rn(v);  // exact: callers store bf16 values only
-  }
-}
-
-// Rows [lo, hi) of a same-length dilated conv over the shared-memory operand
-// `src` (row stride C + 1, its row 0 holding row `src_lo`): out[r][c] =
-// bias[c] + sum_t sum_ci src[r + t*dil - (k-1)/2*dil][ci] * w[t][ci][c].
-// Calls epi(r, c, value).
-template <int C, typename St, typename Epi>
-__device__ __forceinline__ void conv_rows(const St* __restrict__ src,
-                                          const float* __restrict__ w,
-                                          const float* __restrict__ bias, int k, int dil,
-                                          int lo, int hi, Epi epi, int src_lo = 0) {
-  constexpr int S = C + 1;
-  constexpr int CG = C / kCM;
-  constexpr int RG = kThreads / CG;
-  const int cg = threadIdx.x % CG, rg = threadIdx.x / CG;
-  const int c0 = cg * kCM;
-  const int half = (k - 1) / 2 * dil;
-  const float4 b4 = *reinterpret_cast<const float4*>(bias + c0);
-  for (int r0 = lo; r0 < hi; r0 += RG * kRM) {
-    float acc[kRM][kCM];
-#pragma unroll
-    for (int i = 0; i < kRM; ++i) {
-#pragma unroll
-      for (int j = 0; j < kCM; ++j) acc[i][j] = 0.f;
-    }
-    int base[kRM];
-    for (int t = 0; t < k; ++t) {
-      const int off = t * dil - half;
-#pragma unroll
-      for (int i = 0; i < kRM; ++i) {
-        base[i] = (min(r0 + rg + i * RG, hi - 1) + off - src_lo) * S;
-      }
-      const float* wt = w + static_cast<size_t>(t) * C * C + c0;
-#pragma unroll 4
-      for (int ci = 0; ci < C; ++ci) {
-        const float4 w4 = __ldg(reinterpret_cast<const float4*>(wt + ci * C));
-#pragma unroll
-        for (int i = 0; i < kRM; ++i) {
-          const float a = to_f(src[base[i] + ci]);
-          acc[i][0] = fmaf(a, w4.x, acc[i][0]);
-          acc[i][1] = fmaf(a, w4.y, acc[i][1]);
-          acc[i][2] = fmaf(a, w4.z, acc[i][2]);
-          acc[i][3] = fmaf(a, w4.w, acc[i][3]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kRM; ++i) {
-      const int r = r0 + rg + i * RG;
-      if (r < hi) {
-        epi(r, c0 + 0, acc[i][0] + b4.x);
-        epi(r, c0 + 1, acc[i][1] + b4.y);
-        epi(r, c0 + 2, acc[i][2] + b4.z);
-        epi(r, c0 + 3, acc[i][3] + b4.w);
-      }
-    }
-  }
-}
 
 struct Branches {
   int nb, k[3], np, d[3];
@@ -168,7 +60,7 @@ template <int C, typename Fill>
 __device__ void run_branches(float* xb, float* opA, float* opB, float* acc, int acc_lo,
                              int acc_rows, int g0, int T, const float* __restrict__ w,
                              const float* __restrict__ bias, const Branches& br, int mode,
-                             Fill fill) {
+                             bool mask, Fill fill) {
   constexpr int S = C + 1;
   size_t woff = 0, boff = 0;
   for (int b = 0; b < br.nb; ++b) {
@@ -189,7 +81,7 @@ __device__ void run_branches(float* xb, float* opA, float* opB, float* acc, int 
       conv_rows<C>(opA, w1 + j * wconv, b1 + j * C, k, br.d[j], lo, hi,
                    [&](int r, int c, float v) {
                      const int g = g0 + r;
-                     const float xt = (g >= 0 && g < T) ? store(v, mode) : 0.f;
+                     const float xt = (!mask || (g >= 0 && g < T)) ? store(v, mode) : 0.f;
                      opB[r * S + c] = operand(xt, mode);
                    });
       __syncthreads();
@@ -199,7 +91,7 @@ __device__ void run_branches(float* xb, float* opA, float* opB, float* acc, int 
       conv_rows<C>(opB, w2 + j * wconv, b2 + j * C, k, 1, lo, hi,
                    [&](int r, int c, float v) {
                      const int g = g0 + r;
-                     const float xt = (g >= 0 && g < T) ? store(v, mode) : 0.f;
+                     const float xt = (!mask || (g >= 0 && g < T)) ? store(v, mode) : 0.f;
                      const float nx = store(xt + xb[r * S + c], mode);
                      xb[r * S + c] = nx;
                      if (last) {
@@ -219,7 +111,8 @@ template <int C>
 __global__ void __launch_bounds__(kThreads)
     mrf_stage_kernel(const void* __restrict__ x, void* __restrict__ out,
                      const float* __restrict__ w, const float* __restrict__ bias, int T,
-                     int tile, int R, Branches br, int mode, int in_bf16) {
+                     int tile, int R, Branches br, int mode, int in_bf16, int mask_edges,
+                     int out_bf16) {
   constexpr int S = C + 1;
   extern __shared__ float smem[];
   const int L = tile + 2 * R;
@@ -233,7 +126,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = threadIdx.x; i < tile * C; i += kThreads) acc[i] = 0.f;
   const size_t xbase = static_cast<size_t>(b) * T * C;
 
-  run_branches<C>(xb, opA, opB, acc, R, tile, g0, T, w, bias, br, mode,
+  run_branches<C>(xb, opA, opB, acc, R, tile, g0, T, w, bias, br, mode, mask_edges != 0,
                   [&](int lo, int hi) {
                     for (int i = threadIdx.x; i < (hi - lo) * C; i += kThreads) {
                       const int r = lo + i / C, c = i % C, g = g0 + r;
@@ -249,7 +142,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = threadIdx.x; i < tile * C; i += kThreads) {
     const int g = t0 + i / C;
     if (g < T) {
-      store_out(out, xbase + static_cast<size_t>(t0) * C + i, acc[i] / br.nb, mode == kBF16);
+      store_out(out, xbase + static_cast<size_t>(t0) * C + i, acc[i] / br.nb, out_bf16);
     }
   }
 }
@@ -324,7 +217,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  run_branches<C>(xb, opA, opB, acc, H - P, acc_rows, g0, T, w, bias, br, mode,
+  run_branches<C>(xb, opA, opB, acc, H - P, acc_rows, g0, T, w, bias, br, mode, true,
                   [&](int lo, int hi) {
                     for (int i = threadIdx.x; i < (hi - lo) * C; i += kThreads) {
                       const int r = lo + i / C, c = i % C;
@@ -504,7 +397,7 @@ extern "C" int svt_mrf_stage_unpacked(const void* x, void* out, void* s0, void* 
 extern "C" int svt_mrf_stage(const void* x, void* out, const float* w, const float* bias,
                              int B, int T, int C, int tile, int R, int nb, int k0, int k1,
                              int k2, int np, int d0, int d1, int d2, int mode, int in_bf16,
-                             void* stream) {
+                             int mask_edges, int out_bf16, void* stream) {
   const Branches br{nb, {k0, k1, k2}, np, {d0, d1, d2}};
   const dim3 grid((T + tile - 1) / tile, B);
   const size_t smem = sizeof(float) * (3 * static_cast<size_t>(tile + 2 * R) * (C + 1) +
@@ -516,7 +409,7 @@ extern "C" int svt_mrf_stage(const void* x, void* out, const float* w, const flo
     cudaFuncSetAttribute(mrf_stage_kernel<CC>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
                          static_cast<int>(smem));                                           \
     mrf_stage_kernel<CC><<<grid, kThreads, smem, s>>>(x, out, w, bias, T, tile, R, br,     \
-                                                       mode, in_bf16);                      \
+                                                       mode, in_bf16, mask_edges, out_bf16); \
     break;
   switch (C) {
     SVT_MRF_CASE(32)

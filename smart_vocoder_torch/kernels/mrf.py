@@ -43,6 +43,14 @@ kernels cast):
 
 In every mode the weights and biases arrive rounded as the JAX wrappers round
 them (``x.dtype`` for the MRF stage, bf16 under ``hifi`` for the up stage).
+
+:func:`mrf_stage` also takes the options of the packed-MRF A/B variants
+(``scripts/exp_mrf_variants.py:fused_variant``, driven here by
+``tools/exp_mrf_variants.py``): ``mask_edges=False`` is its ``use_mask=False``
+(no zeroing outside ``[0, T)`` after each conv: the chain runs on the
+zero-extended input, so biases leak in from the padding within one radius of
+the ends) and ``out_dtype=torch.bfloat16`` under ``f32_storage`` is its
+``acc_dtype=float32`` (f32 chain state, bf16 conv operands, bf16 output).
 """
 
 from __future__ import annotations
@@ -112,8 +120,14 @@ def _hio_to_oik(w: torch.Tensor) -> torch.Tensor:
 
 
 def _mrf_chain(x: torch.Tensor, branches: List[BranchWeights], kernel_sizes,
-               dilations, mode: int) -> torch.Tensor:
-    """f32 (B, C, T) stage input -> f32 mean of the branch outputs."""
+               dilations, mode: int, mask_edges: bool = True) -> torch.Tensor:
+    """f32 (B, C, T) stage input -> f32 mean of the branch outputs. Without
+    ``mask_edges`` the chain runs on x extended by one stage radius of zeros
+    (within which a conv's own zero padding cannot reach the real rows)."""
+    if not mask_edges:
+        r = stage_radius(kernel_sizes, dilations)
+        return _mrf_chain(F.pad(x, (r, r)), branches, kernel_sizes, dilations,
+                          mode)[..., r:r + x.shape[-1]]
     acc = torch.zeros_like(x)
     for (w1, b1, w2, b2), k in zip(branches, kernel_sizes):
         xb = x
@@ -128,13 +142,18 @@ def _mrf_chain(x: torch.Tensor, branches: List[BranchWeights], kernel_sizes,
 
 
 def mrf_stage_plain(x: torch.Tensor, branches: List[BranchWeights],
-                    kernel_sizes: Sequence[int], dilations: Sequence[int], mode: int
+                    kernel_sizes: Sequence[int], dilations: Sequence[int], mode: int,
+                    mask_edges: bool = True, out_bf16: Optional[bool] = None
                     ) -> torch.Tensor:
     """Plain version of :func:`mrf_stage`: x (B, T, C) -> (B, T, C), bf16 in
-    BF16 mode, else f32. Weights already rounded by the caller."""
-    y = _mrf_chain(x.float().transpose(1, 2), branches, kernel_sizes, dilations, mode)
+    BF16 mode (or with ``out_bf16``), else f32. Weights already rounded by the
+    caller."""
+    y = _mrf_chain(x.float().transpose(1, 2), branches, kernel_sizes, dilations, mode,
+                   mask_edges)
     y = y.transpose(1, 2)
-    return y.to(torch.bfloat16) if mode == BF16 else y.contiguous()
+    if out_bf16 is None:
+        out_bf16 = mode == BF16
+    return y.to(torch.bfloat16) if out_bf16 else y.contiguous()
 
 
 def up_mrf_stage_plain(u: torch.Tensor, up_weight: torch.Tensor, up_bias: torch.Tensor,
@@ -242,19 +261,32 @@ def _branch_args(branches, kernel_sizes, dilations, device):
 
 def mrf_stage(x: torch.Tensor, branches: List[BranchWeights], kernel_sizes: Sequence[int],
               dilations: Sequence[int] = DILATIONS, f32_storage: bool = False,
-              x2: bool = False) -> torch.Tensor:
+              x2: bool = False, mask_edges: bool = True,
+              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """One fused MRF stage over ``x (B, T, C)`` (port of ``fused_mrf_stage_packed``).
 
     Modes as the JAX function's: bf16 ``x`` alone -> BF16; with
     ``f32_storage`` -> F32_STORAGE; f32 ``x`` or ``x2`` -> F32. Output f32
-    except in BF16 mode. Weights are rounded to ``x.dtype`` as JAX rounds them."""
+    except in BF16 mode. Weights are rounded to ``x.dtype`` as JAX rounds them.
+
+    The A/B variants' options: ``mask_edges=False`` drops the zeroing outside
+    ``[0, T)`` after each conv, and ``out_dtype=torch.bfloat16`` rounds the
+    F32_STORAGE result to bf16 (any other ``out_dtype`` must be the mode's own)."""
     _check_input("mrf_stage", x)
     mode = _mrf_mode(x.dtype, f32_storage, x2)
+    own = torch.bfloat16 if mode == BF16 else torch.float32
+    if out_dtype not in (None, own) and not (mode == F32_STORAGE
+                                             and out_dtype == torch.bfloat16):
+        raise ValueError(f"mrf_stage: out_dtype {out_dtype} in a mode whose output is {own} "
+                         "(bf16 is an option of f32_storage only)")
+    out_bf16 = (out_dtype or own) == torch.bfloat16
+    variant = not mask_edges or out_bf16 != (mode == BF16)
     branches = [tuple(_round_to(a, x.dtype) for a in br) for br in branches]
     bsz, t, c = x.shape
     _check_branches(branches, kernel_sizes, dilations, c)
     if x.device.type == "cpu":
-        return mrf_stage_plain(x, branches, kernel_sizes, dilations, mode)
+        return mrf_stage_plain(x, branches, kernel_sizes, dilations, mode, mask_edges,
+                               out_bf16)
 
     if c not in MRF_CHANNELS:
         raise ValueError(f"mrf_stage kernel: C={c} not in {MRF_CHANNELS}")
@@ -265,11 +297,12 @@ def mrf_stage(x: torch.Tensor, branches: List[BranchWeights], kernel_sizes: Sequ
     tile = pick_tile(lambda tl: 4 * (3 * (tl + 2 * radius) * (c + 1) + tl * c))
     w, b, ints = _branch_args(branches, kernel_sizes, dilations, x.device)
     out = torch.empty((bsz, t, c), device=x.device,
-                      dtype=torch.bfloat16 if mode == BF16 else torch.float32)
+                      dtype=torch.bfloat16 if out_bf16 else torch.float32)
     with torch.cuda.device(x.device):
-        launch("mrf_stage", load_library().svt_mrf_stage, x.data_ptr(), out.data_ptr(),
-               w.data_ptr(), b.data_ptr(), bsz, t, c, tile, radius, *ints, mode,
-               int(x.dtype == torch.bfloat16))
+        launch("mrf_stage_variant" if variant else "mrf_stage", load_library().svt_mrf_stage,
+               x.data_ptr(), out.data_ptr(), w.data_ptr(), b.data_ptr(), bsz, t, c, tile,
+               radius, *ints, mode, int(x.dtype == torch.bfloat16), int(mask_edges),
+               int(out_bf16))
     return out
 
 

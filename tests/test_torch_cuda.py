@@ -16,6 +16,14 @@ partial mask and a partial last chunk of layers. Tolerances:
   (under 1% of values differ, each by a summation-order flip of one
   rounding); the full stage must stay under half the distance from the F32
   result that bf16 itself costs.
+- the branch backward: the leaky derivative jumps at 0, so on separate
+  replays one value within rounding noise of 0 (about 2 in 1e7 are) moves a
+  gradient entry by a whole term. So the kernel's replay is held to the plain
+  replay, and its gradients to the plain backward on that same replay. f32:
+  replay within 1e-4 and gradients within 1e-3 of their largest entry (f32
+  summation order, which the blocks' atomic adds change from run to run);
+  bf16: the same cost rule as the forward stages.
+- the gate: f32 within 1e-6, bf16 within one ulp of the output.
 """
 
 import numpy as np
@@ -23,6 +31,13 @@ import pytest
 import torch
 
 from smart_vocoder_torch.kernels import mrf as tmrf
+from smart_vocoder_torch.kernels.gate import fused_gate, fused_gate_plain
+from smart_vocoder_torch.kernels.mrf_train import (
+    branch_replay_plain,
+    mrf_branch_bwd,
+    mrf_branch_bwd_plain,
+    mrf_stage_train,
+)
 from smart_vocoder_torch.kernels.wn_stack import (
     pack_wn_stack,
     wn_chunk,
@@ -58,6 +73,11 @@ def _check_rounding_mode(got, want, exact, one_pair):
         err = (got - want).abs().mean().item()
         ref = (want - exact).abs().mean().item()
         assert err < 0.5 * ref, (err, ref)
+
+
+def _check_f32(got, want, tol):
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= tol * want.abs().max().item()
 
 
 @pytest.mark.cuda
@@ -264,3 +284,147 @@ def test_wrappers_reject_what_the_kernels_are_not_built_for():
         wn_stack(torch.zeros(1, 64, 192, device="cuda", dtype=torch.bfloat16),
                  torch.ones(1, 64, 1, device="cuda"), layers, 192,
                  packed=pack_wn_stack(layers, 192, torch.float32, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [32, 64])
+@pytest.mark.parametrize("variant", ["nomask", "f32acc", "all_f32"])
+def test_mrf_stage_variant_options_match_plain(c, variant):
+    """The packed-MRF variants' options: no edge masking, and the bf16 output
+    of f32 storage; T ragged, so the unmasked right edge lies inside a tile."""
+    rng = np.random.default_rng(c + 3)
+    br = _branches(rng, c, KS, DIL, 0.02, torch.bfloat16)
+    x = torch.from_numpy(rng.normal(0, 0.5, (2, 1000, c)).astype(np.float32)).bfloat16().cuda()
+    mask_edges = variant == "f32acc"
+    f32s = variant != "nomask"
+    kw = {"mask_edges": mask_edges, "f32_storage": f32s,
+          "out_dtype": torch.bfloat16 if f32s else None}
+    before = dict(tmrf.LAUNCHES)
+    got = tmrf.mrf_stage(x, br, KS, DIL, **kw)
+    torch.cuda.synchronize()
+    assert tmrf.LAUNCHES["mrf_stage_variant"] == before["mrf_stage_variant"] + 1
+    assert tmrf.LAUNCHES["mrf_stage"] == before["mrf_stage"]
+    mode = tmrf.F32_STORAGE if f32s else tmrf.BF16
+    want = tmrf.mrf_stage_plain(x, br, KS, DIL, mode, mask_edges, True)
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    _check_rounding_mode(got, want, tmrf.mrf_stage_plain(x, br, KS, DIL, tmrf.F32, mask_edges),
+                         False)
+    if not mask_edges:  # the interior is the masked stage's, bit for bit
+        base = tmrf.mrf_stage(x, br, KS, DIL, f32_storage=f32s,
+                              out_dtype=torch.bfloat16 if f32s else None)
+        r = tmrf.stage_radius(KS, DIL)
+        assert torch.equal(got[:, r:-r], base[:, r:-r])
+        assert not torch.equal(got[:, :r], base[:, :r])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("g_kind", ["none", "full", "broadcast"])
+@pytest.mark.parametrize("shape", [(3, 777, 130), (32, 1000, 384)])
+def test_fused_gate_kernel_matches_plain(dtype, g_kind, shape):
+    rng = np.random.default_rng(5)
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    x = torch.from_numpy(rng.normal(0, 2, shape).astype(np.float32)).to(tdt).cuda()
+    gshape = {"none": None, "full": shape, "broadcast": (shape[0], 1, shape[2])}[g_kind]
+    g = (None if gshape is None else
+         torch.from_numpy(rng.normal(0, 1, gshape).astype(np.float32)).to(tdt).cuda())
+    before = tmrf.LAUNCHES["fused_gate"]
+    got = fused_gate(x, g)
+    torch.cuda.synchronize()
+    assert tmrf.LAUNCHES["fused_gate"] == before + 1
+    want = fused_gate_plain(x, g)
+    assert got.dtype == tdt and got.shape == want.shape == shape[:-1] + (shape[-1] // 2,)
+    diff = (got.float() - want.float()).abs()
+    if dtype == "f32":
+        assert diff.max().item() <= 1e-6
+    else:
+        assert bool((diff <= want.float().abs().clamp_min(2.0 ** -126) * 2.0 ** -7).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("k", KS)
+def test_mrf_branch_bwd_kernel_matches_plain(c, dtype, k):
+    """T = 777 straddles every tile the wrapper can pick (32 to 256 rows) and
+    ends inside one, so halo rows meet at seams: a row counted twice in dw, or
+    a missing edge mask, shows here."""
+    rng = np.random.default_rng(c + k)
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    branch = _branches(rng, c, (k,), DIL, 0.02, tdt)[0]
+    x = torch.from_numpy(rng.normal(0, 0.5, (2, 777, c)).astype(np.float32)).to(tdt).cuda()
+    g = torch.from_numpy(rng.normal(0, 1, (2, 777, c)).astype(np.float32)).to(tdt).cuda()
+    before = tmrf.LAUNCHES["mrf_branch_bwd"]
+    dx, dws, replay = mrf_branch_bwd(x, g, branch, k, DIL, with_replay=True)
+    torch.cuda.synchronize()
+    # a replay and a backward kernel per residual pair
+    assert tmrf.LAUNCHES["mrf_branch_bwd"] == before + 2 * len(DIL)
+    assert dx.dtype == tdt and dx.shape == x.shape
+    flat = [v for vs in replay for v in vs]
+    want_flat = [v for vs in branch_replay_plain(x, branch, k, DIL) for v in vs]
+    wdx, wdws = mrf_branch_bwd_plain(x, g, branch, k, DIL, replay)
+    if dtype == "bf16":
+        exact_flat = [v for vs in branch_replay_plain(x.float(), branch, k, DIL) for v in vs]
+        edx, edws = mrf_branch_bwd_plain(x.float(), g.float(), branch, k, DIL,
+                                         [[v.float() for v in vs] for vs in replay])
+    for i, (a, w) in enumerate(zip(flat, want_flat)):
+        assert a.dtype == tdt
+        if dtype == "f32":
+            _check_f32(a, w, 1e-4)
+        elif i > 0:  # x_0 is x itself
+            _check_rounding_mode(a, w, exact_flat[i], False)
+    for i, (a, w) in enumerate(zip((dx, *dws), (wdx, *wdws))):
+        assert i == 0 or a.dtype == torch.float32
+        if dtype == "f32":
+            _check_f32(a, w, 1e-3)
+        else:
+            _check_rounding_mode(a, w, (edx, *edws)[i], False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_mrf_stage_train_function_on_the_card(dtype):
+    """value and gradients through the Function: forward the unpacked kernel,
+    backward the branch kernels; f32 against torch.autograd of the plain stage."""
+    rng = np.random.default_rng(2)
+    c, tdt = 64, torch.float32 if dtype == "f32" else torch.bfloat16
+    br = [tuple(a.requires_grad_() for a in b) for b in _branches(rng, c, KS, DIL, 0.02, tdt)]
+    x = torch.from_numpy(rng.normal(0, 0.5, (2, 300, c)).astype(np.float32)).to(tdt).cuda()
+    x.requires_grad_()
+    before = dict(tmrf.LAUNCHES)
+    out = mrf_stage_train(x, br, KS, DIL)
+    out.float().abs().mean().backward()
+    torch.cuda.synchronize()
+    assert tmrf.LAUNCHES["mrf_stage_unpacked"] == before["mrf_stage_unpacked"] + 9
+    assert tmrf.LAUNCHES["mrf_branch_bwd"] == before["mrf_branch_bwd"] + 18
+    got = [x.grad] + [a.grad for b in br for a in b]
+    assert all(g is not None and torch.isfinite(g).all() for g in got)
+    assert x.grad.dtype == tdt and br[0][0].grad.dtype == torch.float32
+    if dtype == "f32":
+        x2 = x.detach().clone().requires_grad_()
+        br2 = [tuple(a.detach().clone().requires_grad_() for a in b) for b in br]
+        tmrf.mrf_stage_plain(x2, br2, KS, DIL, tmrf.F32).abs().mean().backward()
+        want = [x2.grad] + [a.grad for b in br2 for a in b]
+        # separate replays: a value within f32 noise of 0 may take the other arm of
+        # the leaky derivative on one side, so the body is held, not the maximum
+        for a, w in zip(got, want):
+            diff, top = (a - w).abs(), w.abs().max().item()
+            assert diff.mean().item() <= 1e-4 * top
+            assert (diff > 1e-3 * top).float().mean().item() <= 1e-2
+
+
+@pytest.mark.cuda
+def test_new_wrappers_reject_what_their_kernels_do_not_take():
+    rng = np.random.default_rng(0)
+    with pytest.raises(ValueError):  # odd last dimension
+        fused_gate(torch.zeros(2, 8, 7, device="cuda"))
+    with pytest.raises(ValueError):  # not contiguous
+        fused_gate(torch.zeros(2, 8, 8, device="cuda")[..., ::2])
+    branch = _branches(rng, 48, (3,), DIL, 0.02, torch.float32)[0]
+    with pytest.raises(ValueError):  # 48 channels are not instantiated
+        mrf_branch_bwd(torch.zeros(1, 64, 48, device="cuda"), torch.zeros(1, 64, 48, device="cuda"),
+                       branch, 3, DIL)
+    br = _branches(rng, 64, KS, DIL, 0.02, torch.float32)
+    with pytest.raises(ValueError):  # a bf16 output is an option of f32_storage only
+        tmrf.mrf_stage(torch.zeros(1, 64, 64, device="cuda"), br, KS, DIL,
+                       out_dtype=torch.bfloat16)

@@ -240,6 +240,113 @@ def test_mrf_stage_reference_matches_jax(mode):
         np.testing.assert_allclose(_np(got), _np(want), rtol=3e-4, atol=3e-4)
 
 
+# ------------------------------------------- the packed-MRF variants' options
+def _chain_without_masking(x, branches, mode):
+    """The ``nomask`` function stated directly: the branch chains as valid
+    convolutions over x extended by zeros, nothing re-zeroed in between, so a
+    conv's bias leaks into the padding and back within one radius of the ends.
+    x (B, T, C) f32 -> f32 (B, T, C)."""
+    import torch.nn.functional as F
+
+    t = x.shape[1]
+    acc = 0
+    for (w1, b1, w2, b2), k in zip(branches, KS):
+        r2 = (k - 1) // 2
+        rb = sum(r2 * d + r2 for d in DIL)
+        xb = F.pad(x.transpose(1, 2), (rb, rb))
+        for j, d in enumerate(DIL):
+            h = tmrf._store(F.conv1d(tmrf._operand(xb, mode), w1[j].permute(2, 1, 0), b1[j],
+                                     dilation=d), mode)
+            y = tmrf._store(F.conv1d(tmrf._operand(h, mode), w2[j].permute(2, 1, 0), b2[j]),
+                            mode)
+            cut = r2 * d + r2
+            xb = tmrf._store(y + xb[..., cut:-cut], mode)
+        assert xb.shape[-1] == t
+        acc = acc + xb
+    return (acc / len(branches)).transpose(1, 2)
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+def test_mrf_stage_without_edge_masking(mode):
+    """``mask_edges=False`` against the direct statement above; beyond one
+    stage radius from the ends it is the masked stage, within it it is not."""
+    rng = np.random.default_rng(21)
+    c, t = 32, 300
+    x = torch.from_numpy(rng.normal(0, 0.5, (2, t, c)).astype(np.float32))
+    br = _tb(_branches(rng, c))
+    if mode == "bf16":
+        x = x.bfloat16()
+        br = [tuple(a.bfloat16().float() for a in b) for b in br]
+    got = tmrf.mrf_stage(x, br, KS, DIL, mask_edges=False)
+    want = _chain_without_masking(x.float(), br, tmrf.BF16 if mode == "bf16" else tmrf.F32)
+    assert got.dtype == x.dtype and got.shape == (2, t, c)
+    if mode == "f32":
+        np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
+    else:  # same rounding points: only summation-order flips of one rounding
+        assert (_np(got) != _np(want.bfloat16())).mean() < 0.01
+    masked = tmrf.mrf_stage(x, br, KS, DIL)
+    r = tmrf.stage_radius(KS, DIL)
+    if mode == "f32":
+        np.testing.assert_allclose(_np(got)[:, r:-r], _np(masked)[:, r:-r], rtol=1e-5, atol=1e-5)
+    else:
+        assert (_np(got)[:, r:-r] != _np(masked)[:, r:-r]).mean() < 0.01
+    assert np.abs(_np(got)[:, :r] - _np(masked)[:, :r]).max() > 1e-3
+
+
+def test_mrf_stage_bf16_output_of_f32_storage_matches_pallas():
+    """``out_dtype=bfloat16`` under ``f32_storage`` (the ``f32acc`` variant) is
+    ``fused_mrf_stage_packed(f32_storage=True)`` cast to bf16: the f32 results
+    are held to 3e-4 of each other above and sit ~1e-5 apart, so after the cast
+    under 1% of values differ, by one bf16 ulp (or by that 3e-4 near zero,
+    where an ulp is smaller than the f32 difference)."""
+    x, br = _stage3_inputs(scale=0.02)
+    want = jmrf.fused_mrf_stage_packed(jnp.asarray(x, jnp.bfloat16), _jb(br), KS, DIL, tile=32,
+                                       interpret=True, f32_storage=True).astype(jnp.bfloat16)
+    got = tmrf.mrf_stage(torch.from_numpy(x).bfloat16(), _tb(br), KS, DIL, f32_storage=True,
+                         out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    diff = np.abs(_np(got) - _np(want))
+    assert (diff > 0).mean() < 0.01
+    assert (diff <= np.maximum(np.abs(_np(want)) * 2.0 ** -7, 3e-4)).all()
+    both = tmrf.mrf_stage(torch.from_numpy(x).bfloat16(), _tb(br), KS, DIL, f32_storage=True,
+                          out_dtype=torch.bfloat16, mask_edges=False)
+    r = tmrf.stage_radius(KS, DIL)
+    assert both.dtype == torch.bfloat16
+    assert (_np(both)[:, r:-r] != _np(got)[:, r:-r]).mean() < 0.01
+
+
+def test_mrf_stage_rejects_an_output_type_its_mode_does_not_have():
+    x, br = _stage3_inputs()
+    with pytest.raises(ValueError):  # bf16 output is an option of f32_storage only
+        tmrf.mrf_stage(torch.from_numpy(x), _tb(br), KS, DIL, out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        tmrf.mrf_stage(torch.from_numpy(x).bfloat16(), _tb(br), KS, DIL,
+                       out_dtype=torch.float32)
+    out = tmrf.mrf_stage(torch.from_numpy(x).bfloat16(), _tb(br), KS, DIL, f32_storage=True,
+                         out_dtype=torch.float32)
+    assert out.dtype == torch.float32
+
+
+def test_variants_tool_runs_on_the_cpu():
+    """The variants entry point at a tiny size: the four timed variants, the
+    three that share a function with one of them, and their central checksums."""
+    from smart_vocoder_torch.tools import exp_mrf_variants
+
+    res = exp_mrf_variants.main(stage=4, iters=1, device="cpu", batch=1, length=300)
+    assert sorted(res) == ["all_f32", "base", "f32acc", "nomask"]
+    assert exp_mrf_variants.SAME_FUNCTION == {"leaky2": "base", "nopad": "base", "all": "nomask"}
+    assert res["base"]["chk"] != res["nomask"]["chk"]
+    assert abs(res["base"]["chk_central"] - res["nomask"]["chk_central"]) < 0.5
+    assert abs(res["f32acc"]["chk_central"] - res["base"]["chk_central"]) < 2.0
+    assert exp_mrf_variants.SHAPES[3] == (128000, 64) and exp_mrf_variants.B == 32
+    only = exp_mrf_variants.main(stage=4, iters=1, names=["all", "nomask"], device="cpu",
+                                 batch=1, length=200)
+    assert list(only) == ["nomask"]
+    with pytest.raises(ValueError):
+        exp_mrf_variants.main(stage=4, iters=1, names=["faster"], device="cpu", batch=1,
+                              length=200)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     rng = np.random.default_rng(0)
     br = _tb(_branches(rng, 32))

@@ -107,7 +107,11 @@ def test_port_imports_no_jax():
         "        'smart_vocoder_torch.kernels.mrf', 'smart_vocoder_torch.kernels.decoder',\n"
         "        'smart_vocoder_torch.kernels.wn_stack', 'smart_vocoder_torch.kernels.encoder',\n"
         "        'smart_vocoder_torch.kernels._build', 'smart_vocoder_torch.inference',\n"
-        "        'smart_vocoder_torch.utils.torch_compat', 'smart_vocoder_torch.utils.init']\n"
+        "        'smart_vocoder_torch.utils.torch_compat', 'smart_vocoder_torch.utils.init',\n"
+        "        'smart_vocoder_torch.utils.device', 'smart_vocoder_torch.kernels.gate',\n"
+        "        'smart_vocoder_torch.kernels.mrf_train', 'smart_vocoder_torch.tools',\n"
+        "        'smart_vocoder_torch.tools.ab_mrf_train',\n"
+        "        'smart_vocoder_torch.tools.exp_mrf_variants']\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'smart_vocoder_tpu'))\n"

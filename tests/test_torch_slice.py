@@ -116,3 +116,18 @@ def test_reference_checkpoint_and_copy_synthesis(setup, tmp_path):
     wav = 0.3 * np.sin(np.arange(80 * 16 + 5) * 0.05).astype(np.float32)
     out = voc.wav_to_wav(wav, seed=1)  # 80 frames: past the last bucket, unpadded
     assert out.shape == (80 * 16,) and np.isfinite(out).all()
+
+
+def test_no_device_means_the_card(setup, monkeypatch, tmp_path):
+    """``device=None`` is the CUDA card: without one ``Vocoder`` and
+    ``from_torch_checkpoint`` raise (the latter before it reads a file)
+    instead of carrying on on the CPU, which only ``device="cpu"`` selects."""
+    _, thps, _, sd, _, _ = setup
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        TorchVocoder(thps, sd, dtype=torch.float32, buckets=(32,))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        TorchVocoder.from_torch_checkpoint(str(tmp_path / "absent.json"),
+                                           str(tmp_path / "absent.pth"))
+    assert TorchVocoder(thps, sd, dtype=torch.float32, buckets=(32,),
+                        device="cpu").device.type == "cpu"
