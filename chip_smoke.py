@@ -7,7 +7,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 1. device: a CUDA card is required; prints its name and power limit.
 2. build: compiles the CUDA kernels (smart_vocoder_torch/kernels/csrc) with
-   nvcc for sm_90a into smart_vocoder_torch/_build/.
+   nvcc for sm_90a into smart_vocoder_torch/_build/, and counts the MMA
+   instructions in the two stage kernels' SASS (``wgmma`` at 64 channels,
+   ``mma.sync`` at 32).
 3. kernels: each kernel against its plain PyTorch version on the card (TF32
    off), at the main-path shapes -- stage 3 x (2, 128000, 64), stage 4
    u (2, 128000, 64) with the conv_post tail; the WN stack at x (32, 1000,
@@ -15,7 +17,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    plain version's own state and skip sum; f32: the whole stack); the
    unpacked MRF stage at x (2, 64000, 128) and (1, 8192, 256); the stage-3
    fold-up u (2, 64000, 128) -> (2, 128000, 64) -- in the modes the serving
-   paths use, plus ragged lengths; the options of the packed-MRF variants
+   paths use (stage 3: f32_storage, bf16, x2; stage 4: hifi, bf16), plus
+   ragged lengths, and the two stages' f32 FMA route on true-f32 inputs and
+   weights; the options of the packed-MRF variants
    (``mask_edges=False``, the bf16 output of f32_storage) at the stage-3
    shapes; the Triton gate at x (32, 1000, 384) with g (32, 1, 384) and
    without, and ragged; the MRF branch backward for k = 3, 7, 11 at the
@@ -52,6 +56,12 @@ operand is a bf16 value, or a hi/lo pair of them in the F32 modes, which
 then count two passes) and its bytes (inputs read once, outputs written once)
 over 3.35 TB/s. No single PyTorch call computes an 18-conv stage, a WN stack,
 a branch backward or the gate, so ``library_ms`` is null throughout.
+``tflops`` is the record's operations over its kernel time. ``earlier_ms``,
+for the two stages and the variant that moved to the tensor cores, is the time
+measured in this run of the f32 FMA kernel they replaced (today's route for
+true-f32 weights, counted under its own ``*_fma`` name) at the same shape on
+f32 inputs; null for the other kernels. The timed calls pass the weights
+packed once (``pack_mrf_stage``, ``pack_up_mrf_stage``), as ``Vocoder`` does.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -162,8 +172,35 @@ def bound(flops: float, tensors) -> dict:
     against the bytes of ``tensors`` (each moved once) over the memory rate."""
     t_ops = flops / PEAK_BF16 * 1e3
     t_bytes = sum(t.numel() * t.element_size() for t in tensors) / HBM_RATE * 1e3
-    return {"bound_ms": max(t_ops, t_bytes),
+    return {"bound_ms": max(t_ops, t_bytes), "flops": flops,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
+
+
+def sass_mma_counts(so: str) -> dict:
+    """MMA instructions in the built library's SASS (``cuobjdump -sass``), per
+    kernel of the two stages: {demangled-ish name: {"HGMMA": n, "HMMA": n,
+    "FFMA": n}}. ``HGMMA`` is ``wgmma``, ``HMMA`` is ``mma.sync``."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    proc = subprocess.Popen([tool, "-sass", so], stdout=subprocess.PIPE, text=True)
+    counts, current = {}, None
+    for line in proc.stdout:
+        if "Function :" in line:
+            m = re.search(r"\d+(up_mrf_stage_kernel|mrf_stage_kernel)((?:ILi\d+E|Li\d+E)+)", line)
+            current = None
+            if m:
+                current = f"{m.group(1)}<{', '.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+                counts[current] = {"HGMMA": 0, "HMMA": 0, "FFMA": 0}
+        elif current:
+            for op in counts[current]:
+                if f" {op}" in line:
+                    counts[current][op] += 1
+    if proc.wait() != 0:
+        raise RuntimeError(f"cuobjdump failed on {so}")
+    return counts
 
 
 def mrf_flops(b: int, t: int, c: int, ks, n_pairs: int) -> float:
@@ -238,6 +275,16 @@ def main() -> int:
     t0 = time.time()
     so = build()
     log(f"build: {time.time() - t0:.1f} s -> {os.path.relpath(so, ROOT)}")
+    # every instantiation of the two stage kernels runs its convs on the tensor
+    # cores: wgmma at 64 channels, mma.sync at 32
+    sass = sass_mma_counts(str(so))
+    for kernel, ops in sorted(sass.items()):
+        log(f"  sass {kernel}: {ops}")
+        wgmma = kernel.split("<")[1].split(",")[-2].strip() == "64"  # <[Cin,] C, mode>
+        if ops["HGMMA" if wgmma else "HMMA"] == 0 or ops["HMMA" if wgmma else "HGMMA"] != 0:
+            raise RuntimeError(f"{kernel}: not the MMA its channel count takes: {ops}")
+    if len(sass) != 10:
+        raise RuntimeError(f"expected the 6 + 4 instantiations of the stage kernels: {sass}")
 
     hps = load_config(os.path.join(ROOT, "configs", "iitp_base.json"))
     net = init_synthesizer(build_synthesizer(hps, weight_norm=True), SEED)
@@ -263,20 +310,43 @@ def main() -> int:
                              .astype(np.float32)).to(dev)
         xb = x.bfloat16()
         br = stage_branches(2, torch.bfloat16)
+        packed = K.pack_mrf_stage(br, dev)
         exact = K.mrf_stage_plain(xb, br, ks, dil, K.F32)
-        for mode, kw in ((K.F32_STORAGE, {"f32_storage": True}), (K.BF16, {})):
-            tag = f"mrf_stage {tuple(x.shape)} {'f32_storage' if kw else 'bf16'}"
+        for mode, kw in ((K.F32_STORAGE, {"f32_storage": True}), (K.BF16, {}),
+                         (K.F32, {"x2": True})):
+            tag = f"mrf_stage {tuple(x.shape)} {next(iter(kw), 'bf16')}"
             got = K.mrf_stage(xb, br, ks, dil, **kw)
+            if not torch.equal(got, K.mrf_stage(xb, br, ks, dil, packed=packed, **kw)):
+                raise RuntimeError(f"{tag}: weights packed once give other bits")
             want = K.mrf_stage_plain(xb, br, ks, dil, mode)
-            err = compare(tag, got, want, exact, False)
+            err = compare(tag, got, want, exact, mode == K.F32)
             rec = records.setdefault("mrf_stage", {"max_abs_err": 0.0})
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             if t == 128000 and mode == K.F32_STORAGE:
-                rec["ms"] = cuda_ms(lambda: K.mrf_stage(xb, br, ks, dil, **kw), 5)
+                rec["ms"] = cuda_ms(lambda: K.mrf_stage(xb, br, ks, dil, packed=packed, **kw), 5)
                 rec["plain_ms"] = cuda_ms(lambda: K.mrf_stage_plain(xb, br, ks, dil, mode), 5)
                 rec.update(bound(mrf_flops(*x.shape, ks, len(dil)), [xb, got, *sum(br, ())]))
                 log(f"  mrf_stage {tuple(x.shape)} f32_storage: kernel {rec['ms']:.2f} ms, "
                     f"plain {rec['plain_ms']:.2f} ms, bound {rec['bound_ms']:.3f} ms  [{card}]")
+            elif t == 128000:
+                ms = cuda_ms(lambda: K.mrf_stage(xb, br, ks, dil, packed=packed, **kw), 5)
+                log(f"  {tag}: kernel {ms:.2f} ms  [{card}]")
+        # true-f32 activations and weights: the f32 FMA route, with and without
+        # the edge mask (the kernels that stage 3 and its variants ran before)
+        br32 = stage_branches(2, torch.float32)
+        for kname, kw in (("mrf_stage", {}), ("mrf_stage_variant", {"mask_edges": False})):
+            before = K.LAUNCHES[kname + "_fma"]
+            got = K.mrf_stage(x, br32, ks, dil, **kw)
+            if K.LAUNCHES[kname + "_fma"] != before + 1:
+                raise RuntimeError(f"{kname}: f32 inputs did not take the FMA kernel")
+            want = K.mrf_stage_plain(x, br32, ks, dil, K.F32, **kw)
+            tag = f"{kname} {tuple(x.shape)} f32 (FMA route)"
+            rec = records.setdefault(kname, {"max_abs_err": 0.0})
+            rec["max_abs_err"] = max(rec["max_abs_err"], compare(tag, got, want, want, True))
+            if t == 128000:
+                rec["earlier_ms"] = cuda_ms(lambda: K.mrf_stage(x, br32, ks, dil, **kw), 3)
+                log(f"  {tag}: kernel {rec['earlier_ms']:.2f} ms  [{card}]")
+        del br32
         # the options of the packed-MRF variants, each against its plain version
         for label, mode, kw in (("nomask", K.BF16, {"mask_edges": False}),
                                 ("f32acc", K.F32_STORAGE, {"f32_storage": True,
@@ -285,7 +355,7 @@ def main() -> int:
                                                             "f32_storage": True,
                                                             "out_dtype": torch.bfloat16})):
             mask_edges = kw.get("mask_edges", True)
-            got = K.mrf_stage(xb, br, ks, dil, **kw)
+            got = K.mrf_stage(xb, br, ks, dil, packed=packed, **kw)
             want = K.mrf_stage_plain(xb, br, ks, dil, mode, mask_edges, True)
             exact_v = K.mrf_stage_plain(xb, br, ks, dil, K.F32, mask_edges)
             if got.dtype != torch.bfloat16:
@@ -295,7 +365,7 @@ def main() -> int:
             rec = records.setdefault("mrf_stage_variant", {"max_abs_err": 0.0})
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             if t == 128000 and label == "nomask":
-                rec["ms"] = cuda_ms(lambda: K.mrf_stage(xb, br, ks, dil, **kw), 5)
+                rec["ms"] = cuda_ms(lambda: K.mrf_stage(xb, br, ks, dil, packed=packed, **kw), 5)
                 rec["plain_ms"] = cuda_ms(
                     lambda: K.mrf_stage_plain(xb, br, ks, dil, mode, mask_edges, True), 5)
                 rec.update(bound(mrf_flops(*x.shape, ks, len(dil)), [xb, got, *sum(br, ())]))
@@ -311,9 +381,13 @@ def main() -> int:
             uu = u if hifi else u.bfloat16()
             args = (up_w.to(wdt).float(), up_b.to(wdt).float(), 2, 1, brr, ks, dil)
             pw = post.to(wdt).float()
+            up_packed = K.pack_up_mrf_stage(args[0], args[1], 2, 1, brr, pw, dev)
             tag = f"up_mrf_stage {tuple(uu.shape)} {'hifi' if hifi else 'bf16'}"
             got = K.up_mrf_stage(uu, args[0], args[1], 4, 2, 1, brr, ks, dil,
                                  post_weight=pw, hifi=hifi)
+            if not torch.equal(got, K.up_mrf_stage(uu, args[0], args[1], 4, 2, 1, brr, ks, dil,
+                                                   post_weight=pw, hifi=hifi, packed=up_packed)):
+                raise RuntimeError(f"{tag}: weights packed once give other bits")
             want = K.up_mrf_stage_plain(uu, *args, mode, pw)
             exact = K.up_mrf_stage_plain(uu, *args, K.F32, pw)
             err = compare(tag, got, want, exact, mode == K.F32)
@@ -321,7 +395,8 @@ def main() -> int:
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             if t == 128000 and hifi:
                 rec["ms"] = cuda_ms(lambda: K.up_mrf_stage(
-                    uu, args[0], args[1], 4, 2, 1, brr, ks, dil, post_weight=pw, hifi=True), 5)
+                    uu, args[0], args[1], 4, 2, 1, brr, ks, dil, post_weight=pw, hifi=True,
+                    packed=up_packed), 5)
                 rec["plain_ms"] = cuda_ms(lambda: K.up_mrf_stage_plain(uu, *args, mode, pw), 5)
                 # hifi: f32 activations as hi + lo bf16 pairs, so two tensor-core passes
                 b_, tu_, cin_ = uu.shape
@@ -330,6 +405,26 @@ def main() -> int:
                 rec.update(bound(flops, [uu, got, args[0], pw, *sum(brr, ())]))
                 log(f"  up_mrf_stage {tuple(uu.shape)} hifi+post: kernel {rec['ms']:.2f} ms, "
                     f"plain {rec['plain_ms']:.2f} ms, bound {rec['bound_ms']:.3f} ms  [{card}]")
+            elif t == 128000:
+                ms = cuda_ms(lambda: K.up_mrf_stage(uu, args[0], args[1], 4, 2, 1, brr, ks, dil,
+                                                    post_weight=pw, packed=up_packed), 5)
+                log(f"  {tag}+post: kernel {ms:.2f} ms  [{card}]")
+        # true-f32 u and weights, no hifi: the f32 FMA route (the kernel that
+        # stage 4 ran before)
+        brr = stage_branches(3, torch.float32)
+        args = (up_w.float(), up_b.float(), 2, 1, brr, ks, dil)
+        before = K.LAUNCHES["up_mrf_stage_fma"]
+        got = K.up_mrf_stage(u, args[0], args[1], 4, 2, 1, brr, ks, dil, post_weight=post.float())
+        if K.LAUNCHES["up_mrf_stage_fma"] != before + 1:
+            raise RuntimeError("up_mrf_stage: f32 inputs did not take the FMA kernel")
+        want = K.up_mrf_stage_plain(u, *args, K.F32, post.float())
+        tag = f"up_mrf_stage {tuple(u.shape)} f32 (FMA route)"
+        rec = records["up_mrf_stage"]
+        rec["max_abs_err"] = max(rec["max_abs_err"], compare(tag, got, want, want, True))
+        if t == 128000:
+            rec["earlier_ms"] = cuda_ms(lambda: K.up_mrf_stage(
+                u, args[0], args[1], 4, 2, 1, brr, ks, dil, post_weight=post.float()), 3)
+            log(f"  {tag}: kernel {rec['earlier_ms']:.2f} ms  [{card}]")
         del x, xb, u, exact
 
     def record(name, err):
@@ -371,11 +466,13 @@ def main() -> int:
         args = (up_w.bfloat16().float(), up_b.bfloat16().float(), 2, 1, brr, ks, dil)
         tag = f"up_mrf_stage {tuple(ub.shape)} 128->64 bf16"
         got = K.up_mrf_stage(ub, args[0], args[1], 4, 2, 1, brr, ks, dil)
+        up_packed = K.pack_up_mrf_stage(args[0], args[1], 2, 1, brr, None, dev)
         want = K.up_mrf_stage_plain(ub, *args, K.BF16)
         exact = K.up_mrf_stage_plain(ub, *args, K.F32)
         record("up_mrf_stage", compare(tag, got, want, exact, False))
         if tu == 64000:
-            ms = cuda_ms(lambda: K.up_mrf_stage(ub, args[0], args[1], 4, 2, 1, brr, ks, dil), 3)
+            ms = cuda_ms(lambda: K.up_mrf_stage(ub, args[0], args[1], 4, 2, 1, brr, ks, dil,
+                                                packed=up_packed), 3)
             plain = cuda_ms(lambda: K.up_mrf_stage_plain(ub, *args, K.BF16), 3)
             bnd = bound(mrf_flops(2, 2 * tu, 64, ks, len(dil)) + 2.0 * 4 * 128 * 64 * tu * 2,
                         [ub, got, args[0], *sum(brr, ())])
@@ -635,6 +732,9 @@ def main() -> int:
         fn(mel32, lens32, eps32)
         torch.cuda.synchronize()
         per_step = {k: v for k, v in K.LAUNCHES.items() if v}
+        if label in ("hifi2", "hifi0") and per_step != {"mrf_stage": 1, "up_mrf_stage": 1}:
+            raise RuntimeError(f"{label}: a step is one launch of each stage kernel, got "
+                               f"{per_step}")
         t0 = time.perf_counter()
         for _ in range(iters):
             fn(mel32, lens32, eps32)
@@ -726,7 +826,7 @@ def main() -> int:
          "replaces": "smart_vocoder_tpu/kernels/mrf.py:560",
          "launches": launches["up_mrf_stage"], **records["up_mrf_stage"]},
         {"name": "mrf_stage_unpacked", "route": "cuda",
-         "source": "smart_vocoder_torch/kernels/csrc/mrf_stage.cu",
+         "source": "smart_vocoder_torch/kernels/csrc/mrf_stage_fma.cu",
          "replaces": "smart_vocoder_tpu/kernels/mrf.py:129",
          "launches": launches_s2["mrf_stage_unpacked"], **records["mrf_stage_unpacked"]},
         {"name": "wn_stack", "route": "cuda",
@@ -747,8 +847,10 @@ def main() -> int:
          "launches": launches_var["mrf_stage_variant"], **records["mrf_stage_variant"]},
     ]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms"}
+            "bound_ms", "bound_by", "library_ms", "tflops", "earlier_ms"}
     for rec in kernels:
+        rec["tflops"] = rec.pop("flops") / rec["ms"] / 1e9
+        rec.setdefault("earlier_ms", None)
         if set(rec) != keys or rec["launches"] <= 0:
             raise RuntimeError(f"incomplete kernel record: {rec}")
     print(json.dumps({"kernels": kernels}))

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from smart_vocoder_torch.config import HParams, load_config
-from smart_vocoder_torch.kernels.decoder import DecoderConfig, decoder_apply
+from smart_vocoder_torch.kernels.decoder import DecoderConfig, decoder_apply, pack_decoder
 from smart_vocoder_torch.kernels.encoder import pack_prior_flow, prior_flow_apply
 from smart_vocoder_torch.models import build_synthesizer
 from smart_vocoder_torch.nn import fold_weight_norm
@@ -94,6 +94,9 @@ class Vocoder:
         self.dec_params = {k[len("dec."):]: v for k, v in self.params.items()
                            if k.startswith("dec.")}
         self.dec_cfg = DecoderConfig.from_hparams(hps)
+        # the MRF weights as decoder_apply and its kernels read them, made once
+        self.dec_packed = (pack_decoder(self.dec_params, self.dec_cfg, dtype, self.hifi)
+                           if self.use_kernels else None)
         m = hps.model
         self.wn_sizes = dict(enc_layers=m.get("enc_layers", 16),
                              flow_wn_layers=m.get("flow_wn_layers", 8), hidden=m.hidden_channels)
@@ -151,7 +154,7 @@ class Vocoder:
             return self.net.dec(z.transpose(1, 2), g=g).transpose(1, 2)
         return decoder_apply(self.dec_params, z, self.dec_cfg,
                              g=None if g is None else g.transpose(1, 2),
-                             dtype=self.dtype, hifi_tail=self.hifi)
+                             dtype=self.dtype, hifi_tail=self.hifi, packed=self.dec_packed)
 
     def mel_to_wav(self, mel: np.ndarray, lengths: Optional[np.ndarray] = None,
                    noise_scale: float = 0.667, sid: Optional[np.ndarray] = None,

@@ -27,12 +27,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # x, out, w, bias, B, T, C, tile, R, nb, k0..k2, np, d0..d2, mode, in_bf16,
-    # mask_edges, out_bf16, stream
+    # x, out, w (packed bf16 tiles), bias, B, T, C, tile, R, nb, k0..k2, np, d0..d2, mode,
+    # in_bf16, mask_edges, out_bf16, stream
     "svt_mrf_stage": [_P] * 4 + [_I] * 17 + [_P],
-    # u, out, wup, bup, w, bias, wpost, B, Tu, Cin, C, kup, sup, pup, tile, H, kpost,
-    # nb, k0..k2, np, d0..d2, mode, in_bf16, stream
-    "svt_up_mrf_stage": [_P] * 7 + [_I] * 20 + [_P],
+    # the same with w as flat f32 [branch][w1, w2]
+    "svt_mrf_stage_fma": [_P] * 4 + [_I] * 17 + [_P],
+    # u, out, w (packed bf16 tiles: upsample, then MRF), bup, bias, wpost, B, Tu, Cin, C,
+    # kup, sup, pup, tile, H, kpost, nb, k0..k2, np, d0..d2, mode, in_bf16, stream
+    "svt_up_mrf_stage": [_P] * 6 + [_I] * 20 + [_P],
+    # u, out, wup, bup, w, bias, wpost (all f32), then as svt_up_mrf_stage
+    "svt_up_mrf_stage_fma": [_P] * 7 + [_I] * 20 + [_P],
     # x, out, s0, s1, acc, w, bias, B, T, C, tile, nb, k0..k2, np, d0..d2, is_bf16,
     # n_launched (out), stream
     "svt_mrf_stage_unpacked": [_P] * 7 + [_I] * 13 + [ctypes.POINTER(_I), _P],
@@ -60,7 +64,10 @@ def pick_tile(smem_bytes) -> int:
 # ("mrf_stage_variant": mrf_stage with an option of the A/B variants set).
 LAUNCHES: dict[str, int] = {"mrf_stage": 0, "up_mrf_stage": 0, "mrf_stage_unpacked": 0,
                             "wn_stack": 0, "fused_gate": 0, "mrf_branch_bwd": 0,
-                            "mrf_stage_variant": 0}
+                            "mrf_stage_variant": 0,
+                            # the f32 FMA bodies of the three above (true-f32 weights)
+                            "mrf_stage_fma": 0, "up_mrf_stage_fma": 0,
+                            "mrf_stage_variant_fma": 0}
 
 
 def reset_launch_counts() -> None:

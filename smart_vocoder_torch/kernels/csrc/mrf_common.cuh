@@ -1,7 +1,7 @@
-// Helpers shared by the MRF kernels (mrf_stage.cu, mrf_train.cu): the rounding
-// points of the precision modes, typed loads and stores, and the tiled
-// convolution loop over a shared-memory operand. Included by each source, so
-// everything here has internal linkage.
+// Helpers shared by the MRF kernels (mrf_stage.cu, mrf_stage_fma.cu,
+// mrf_train.cu): the rounding points of the precision modes, typed loads and
+// stores, and the tiled FMA convolution loop over a shared-memory operand.
+// Included by each source, so everything here has internal linkage.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -15,7 +15,13 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRM = 8;  // output rows per thread per pass
 constexpr int kCM = 4;  // output channels per thread (one float4 of weights)
-constexpr int kBF16 = 0, kF32Storage = 1;
+constexpr int kBF16 = 0, kF32Storage = 1, kF32 = 2;  // precision modes
+
+// One MRF stage: nb branches of kernel sizes k[], each np residual pairs of
+// dilations d[].
+struct Branches {
+  int nb, k[3], np, d[3];
+};
 
 __device__ __forceinline__ float rbf(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));

@@ -11,7 +11,7 @@
 // chain. The TPU kernel replays a whole branch in VMEM over a tile with a
 // ~22-radius halo; a Hopper block has 227 KB of shared memory, where x, g,
 // three x_j, three h_j and the gradients of such a tile do not fit at C = 128.
-// So, like the forward (mrf_pair_kernel in mrf_stage.cu), the work is cut per
+// So, like the forward (mrf_pair_kernel in mrf_stage_fma.cu), the work is cut per
 // residual pair x_{j+1} = x_j + c2(lrelu(h_j)), h_j = c1_d(lrelu(x_j)), each
 // with its own small halo:
 //
@@ -48,8 +48,6 @@
 #include "mrf_common.cuh"
 
 namespace {
-
-constexpr int kF32 = 2;
 
 // d/dv max(v, slope v): 1 for v > 0, else the slope (in x's own precision).
 __device__ __forceinline__ float dleaky(float v, int mode) {

@@ -26,7 +26,7 @@ kernel (:func:`mrf_stage_unpacked`): stage 2 (128 channels) always, stage 1
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Sequence
+from typing import List, Mapping, NamedTuple, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -36,10 +36,15 @@ from smart_vocoder_torch.kernels.mrf import (
     MRF_CHANNELS,
     POST_SLOPE,
     UP_CHANNELS,
+    BranchWeights,
+    PackedMRF,
+    PackedUpMRF,
     leaky_native,
     mrf_stage,
     mrf_stage_reference,
     mrf_stage_unpacked,
+    pack_mrf_stage,
+    pack_up_mrf_stage,
     up_mrf_stage,
 )
 
@@ -106,10 +111,64 @@ def _stage_branches(params: Mapping[str, torch.Tensor], stage: int, num_kernels:
     return branches
 
 
+def _stage_kernel(cfg: DecoderConfig, stage: int, pallas_stage2: bool) -> Optional[str]:
+    """Which tensor-core kernel the routing of the module docstring gives a
+    stage: ``"up_mrf_stage"``, ``"mrf_stage"`` or neither."""
+    n_stages = len(cfg.upsample_rates)
+    ch = cfg.upsample_initial_channel // (2 ** (stage + 1))
+    last = stage == n_stages - 1
+    fold_up = ch <= 32 or (pallas_stage2 and ch <= 64)
+    if fold_up and (last or pallas_stage2) and (2 * ch, ch) in UP_CHANNELS:
+        return "up_mrf_stage"
+    if stage == n_stages - 2 and ch in MRF_CHANNELS:
+        return "mrf_stage"
+    return None
+
+
+class PackedStage(NamedTuple):
+    """One stage's weights as :func:`decoder_apply` uses them at every step:
+    the stacked branches, and the layout of the stage's tensor-core kernel
+    where it has one and its weights are bf16 values."""
+    branches: List[BranchWeights]
+    kernel: Union[PackedMRF, PackedUpMRF, None]
+
+
+def pack_decoder(params_dec: Mapping[str, torch.Tensor], cfg: DecoderConfig,
+                 dtype=torch.bfloat16, hifi_tail: int = 0,
+                 pallas_stage2: bool = False) -> List[PackedStage]:
+    """The ``packed`` argument of :func:`decoder_apply` for these weights and
+    options: made once per weight set (``Vocoder`` does), so a request does
+    not stack, round and lay out the MRF weights again."""
+    dil = tuple(cfg.resblock_dilation_sizes[0])
+    n_stages = len(cfg.upsample_rates)
+    bf16 = dtype == torch.bfloat16
+    hifi = int(hifi_tail)
+    stages = []
+    for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
+        branches = _stage_branches(params_dec, i, len(cfg.resblock_kernel_sizes), len(dil),
+                                   dtype)
+        last = i == n_stages - 1
+        kernel = _stage_kernel(cfg, i, pallas_stage2)
+        packed = None
+        # the last stage's weights are bf16 values under hifi; a stage folded up
+        # before it takes the early decoder's f32 activations at hifi >= 2
+        up_bf16 = (bf16 or hifi >= 1) if last else (bf16 and hifi < 2)
+        if kernel == "up_mrf_stage" and up_bf16:
+            packed = pack_up_mrf_stage(
+                params_dec[f"ups.{i}.weight"], params_dec[f"ups.{i}.bias"], u, (k - u) // 2,
+                branches, params_dec["conv_post.weight"] if last else None,
+                device=branches[0][0].device)
+        elif kernel == "mrf_stage" and bf16:
+            packed = pack_mrf_stage(branches, branches[0][0].device)
+        stages.append(PackedStage(branches, packed))
+    return stages
+
+
 def decoder_apply(params_dec: Mapping[str, torch.Tensor], x: torch.Tensor,
                   cfg: DecoderConfig, g: torch.Tensor | None = None,
                   dtype=torch.bfloat16, hifi_tail: int = 0,
-                  pallas_stage2: bool = False) -> torch.Tensor:
+                  pallas_stage2: bool = False,
+                  packed: Optional[Sequence[PackedStage]] = None) -> torch.Tensor:
     """Folded decoder weights (the ``dec.`` state dict without its prefix) and
     latent ``x (B, T, C)`` -> waveform ``(B, T*hop, 1)``.
 
@@ -121,7 +180,8 @@ def decoder_apply(params_dec: Mapping[str, torch.Tensor], x: torch.Tensor,
     mode (the JAX hi/lo split). The levels are meant for ``dtype=bfloat16``;
     ``Vocoder`` sets 0 for float32. ``pallas_stage2``: the routing of the
     module docstring; the folded-up stage before the last runs without the
-    tail and so without ``hifi``."""
+    tail and so without ``hifi``. ``packed``: from :func:`pack_decoder` for
+    the same weights, ``dtype``, ``hifi_tail`` and ``pallas_stage2``."""
     if cfg.resblock != "1":
         raise ValueError("the fast decoder supports ResBlock1 configs")
     num_kernels = len(cfg.resblock_kernel_sizes)
@@ -146,23 +206,27 @@ def decoder_apply(params_dec: Mapping[str, torch.Tensor], x: torch.Tensor,
     for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
         ch = cfg.upsample_initial_channel // (2 ** (i + 1))
         up_w, up_b = p[f"ups.{i}.weight"], p[f"ups.{i}.bias"]
-        branches = _stage_branches(p, i, num_kernels, len(dil), dtype)
+        if packed is None:
+            branches, kernel_weights = _stage_branches(p, i, num_kernels, len(dil), dtype), None
+        else:
+            branches, kernel_weights = packed[i]
         last = i == n_stages - 1
-        fold_up = ch <= 32 or (pallas_stage2 and ch <= 64)
-        if fold_up and (last or pallas_stage2) and (2 * ch, ch) in UP_CHANNELS:
+        kernel = _stage_kernel(cfg, i, pallas_stage2)
+        if kernel == "up_mrf_stage":
             y = up_mrf_stage(y.transpose(1, 2), up_w, up_b, k, u, (k - u) // 2,
                              branches, ks, dil,
                              post_weight=p["conv_post.weight"] if last else None,
-                             hifi=hifi >= 1 and last)
+                             hifi=hifi >= 1 and last, packed=kernel_weights)
             if last:
                 return y
             y = y.transpose(1, 2)
             continue
         y = _conv_transpose1d(leaky_native(y, LRELU_SLOPE), up_w, up_b, u, (k - u) // 2,
                               dtype, out_f32=early_f32)
-        if i == n_stages - 2 and ch in MRF_CHANNELS:
+        if kernel == "mrf_stage":
             y = mrf_stage(y.transpose(1, 2).to(dtype), branches, ks, dil,
-                          f32_storage=hifi >= 1, x2=hifi >= 3).transpose(1, 2)
+                          f32_storage=hifi >= 1, x2=hifi >= 3,
+                          packed=kernel_weights).transpose(1, 2)
         elif pallas_stage2 and ch % 128 == 0 and y.shape[2] % 512 == 0:
             y = mrf_stage_unpacked(y.transpose(1, 2).to(dtype), branches, ks,
                                    dil).transpose(1, 2)

@@ -20,12 +20,33 @@ Three kernels, counterparts of the JAX package's Pallas kernels:
 
 They compute the *function* of the TPU kernels, not their block structure
 (space-to-depth packing, per-tap weights and the DMA'd mask are TPU lane
-tricks). Each wrapper launches its CUDA kernel (``csrc/mrf_stage.cu``) for a
-CUDA tensor, or raises; for a CPU tensor it runs the plain PyTorch version
-beside it (:func:`mrf_stage_plain`, :func:`up_mrf_stage_plain`), which the
-tests and ``chip_smoke.py`` hold the kernels against. ``mrf_stage_unpacked``
-is ``fused_mrf_stage``'s contract, which is the BF16 mode for a bf16 ``x`` and
+tricks). Each wrapper launches its CUDA kernel for a CUDA tensor, or raises;
+for a CPU tensor it runs the plain PyTorch version beside it
+(:func:`mrf_stage_plain`, :func:`up_mrf_stage_plain`), which the tests and
+``chip_smoke.py`` hold the kernels against. ``mrf_stage_unpacked`` is
+``fused_mrf_stage``'s contract, which is the BF16 mode for a bf16 ``x`` and
 the F32 mode for an f32 one, so its plain version is ``mrf_stage_plain``.
+
+What bounds :func:`mrf_stage` and :func:`up_mrf_stage` on the card is
+arithmetic (a stage is 252*C*C FLOP a row against a few hundred bytes), so
+their kernels (``csrc/mrf_stage.cu``) run every conv, and the polyphase
+upsample, on the tensor cores with bf16 operands and f32 accumulation over
+bf16 operand buffers in shared memory: ``wgmma.m64n64k16`` at 64 channels (A
+from registers through ``ldmatrix``, the weight tile through a shared-memory
+descriptor), ``mma.sync.m16n8k16`` at 32. The weights are bf16 tiles in the
+order of use, in the layout the MMA's B operand wants
+(:func:`pack_mrf_stage`, :func:`pack_up_mrf_stage`: made once per weight set
+by the caller and passed as ``packed``, else made on each call), and are
+streamed through a shared-memory ring. What bounds them now is the
+shared-memory traffic of that loop and one block-wide barrier per tap. The
+tile is the largest whose buffers fit in a block's shared memory and whose
+haloed rows the block's warps cover (:func:`mrf_stage_tile`,
+:func:`up_mrf_stage_tile`). That holds wherever the weights are bf16 values,
+which is every serving mode; for true-f32 weights (an f32 ``x``; an f32 ``u``
+without ``hifi``) the wrappers launch the f32 FMA kernels of
+``csrc/mrf_stage_fma.cu`` instead, since a product of bf16 pairs does not
+compute an f32 x f32 convolution; those launches count as ``mrf_stage_fma``
+and ``up_mrf_stage_fma``.
 
 Precision modes (one int flag of the kernels, mirrored by the plain
 versions, which compute in float32 and round explicitly where the JAX
@@ -37,9 +58,10 @@ kernels cast):
 - ``F32_STORAGE``: f32 storage and output, each conv operand rounded once to
   bf16 (``fused_mrf_stage_packed(f32_storage=True)``, hifi levels 1-2).
 - ``F32``: no rounding of activations. This is the JAX f32 mode and also its
-  ``x2`` / ``hifi`` modes: there the hi+lo bf16 pair reconstructs the f32
-  operand to ~2^-16, which an f32 FMA against the bf16-rounded weight computes
-  directly.
+  ``x2`` / ``hifi`` modes: there the kernels, like the JAX ones, take each
+  f32 operand as a hi + lo pair of bf16 values (:func:`split_hi_lo`), which
+  reconstructs it to ~2^-16, and multiply both against the bf16-valued
+  weight; the plain versions compute the f32 product directly.
 
 In every mode the weights and biases arrive rounded as the JAX wrappers round
 them (``x.dtype`` for the MRF stage, bf16 under ``hifi`` for the up stage).
@@ -56,7 +78,7 @@ the ends) and ``out_dtype=torch.bfloat16`` under ``f32_storage`` is its
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -113,6 +135,16 @@ def _operand(v: torch.Tensor, mode: int) -> torch.Tensor:
 
 def _store(v: torch.Tensor, mode: int) -> torch.Tensor:
     return _rbf(v) if mode == BF16 else v
+
+
+def split_hi_lo(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """An f32 tensor as the two bf16 planes the F32-mode kernels multiply:
+    ``hi`` is x's upper 16 bits (a bf16 value by truncation), ``lo`` the bf16
+    rounding of ``x - hi`` (exact in f32). ``hi + lo`` reconstructs x to within
+    2^-16 |x|. Both planes are returned as f32 holding bf16 values."""
+    x = x.float().contiguous()
+    hi = (x.view(torch.int32) & -65536).view(torch.float32)
+    return hi, _rbf(x - hi)
 
 
 def _hio_to_oik(w: torch.Tensor) -> torch.Tensor:
@@ -248,21 +280,172 @@ def _check_branches(branches, kernel_sizes, dilations, c: int) -> None:
                 raise ValueError(f"branch bias {tuple(b.shape)} != {(len(dilations), c)}")
 
 
-def _branch_args(branches, kernel_sizes, dilations, device):
-    """Flat f32 weights [branch][w1, w2] and biases [branch][b1, b2] + int args."""
+def _flat_weights(branches, device) -> torch.Tensor:
+    """f32 [branch][w1 of every pair, w2 of every pair][tap][Cin][Cout]."""
     w = torch.cat([torch.cat([w1.reshape(-1), w2.reshape(-1)]) for w1, _, w2, _ in branches])
+    return w.to(device=device, dtype=torch.float32).contiguous()
+
+
+def _flat_biases(branches, dtype: torch.dtype, device) -> torch.Tensor:
+    """f32 [branch][b1 of every pair, b2 of every pair][C], rounded to ``dtype``."""
     b = torch.cat([torch.cat([b1.reshape(-1), b2.reshape(-1)]) for _, b1, _, b2 in branches])
+    return _round_to(b, dtype).to(device).contiguous()
+
+
+def _branch_ints(branches, kernel_sizes, dilations) -> List[int]:
+    """The entry points' int arguments nb, k0..k2, np, d0..d2."""
     ks = list(kernel_sizes) + [0] * (3 - len(kernel_sizes))
     ds = list(dilations) + [0] * (3 - len(dilations))
-    w = w.to(device=device, dtype=torch.float32).contiguous()
-    b = b.to(device=device, dtype=torch.float32).contiguous()
-    return w, b, [len(branches), *ks, len(dilations), *ds]
+    return [len(branches), *ks, len(dilations), *ds]
+
+
+# The tensor-core kernels' geometry, mirrored from csrc/mrf_mma.cuh and
+# csrc/mrf_stage.cu:smem_bytes.
+MMA_MAX_ROWS = 256  # rows one GEMM covers: 16 warps of a 16-row tile (4 x 64 on wgmma)
+MMA_STAGES = 4  # weight tiles in the shared-memory ring
+MMA_PAD = 8  # elements of padding per shared-memory row
+UP_TILE_ROWS = 64  # input channels per weight tile of the upsample
+
+
+def mma_smem_bytes(c: int, ring_rows: int, rows: int, sum_rows: int, n_state: int,
+                   planes: int) -> int:
+    """Shared memory of one block of the tensor-core kernels: ``n_state`` f32
+    state buffers of ``rows`` rows and the f32 branch sum, two bf16 operand
+    buffers of ``planes`` planes (2 in F32 mode: hi and lo), and the ring of
+    ``MMA_STAGES`` weight tiles of ``ring_rows`` rows; every row padded."""
+    return ((n_state * rows + sum_rows) * (c + MMA_PAD) * 4
+            + (2 * planes * rows + MMA_STAGES * ring_rows) * (c + MMA_PAD) * 2)
+
+
+def mrf_stage_tile(c: int, mode: int, radius: int) -> int:
+    """The time tile of :func:`mrf_stage`'s tensor-core kernel: the largest
+    whose block fits in shared memory with tile + 2 * radius rows that the
+    block's warps cover. (128 at C = 64 and the stage radius 60: 217 KB in the
+    bf16-operand modes; F32 mode at C = 64 takes 64.)"""
+    def smem(tile):
+        rows = tile + 2 * radius
+        if rows > MMA_MAX_ROWS:
+            return SMEM_LIMIT + 1
+        return mma_smem_bytes(c, c, rows, tile, 1, 2 if mode == F32 else 1)
+
+    return pick_tile(smem)
+
+
+def up_mrf_stage_tile(cin: int, c: int, mode: int, halo: int, p_post: int, up_kernel: int,
+                      up_stride: int) -> int:
+    """The time tile (output rows) of :func:`up_mrf_stage`'s tensor-core
+    kernel, as :func:`mrf_stage_tile`; the block also keeps the upsampled
+    stage input, and its u tile must fit in the two operand buffers it
+    aliases until the branches start."""
+    def smem(tile):
+        rows = tile + 2 * halo
+        u_rows = (rows + up_kernel) // up_stride + 2
+        if rows > MMA_MAX_ROWS or u_rows * (cin + MMA_PAD) > 2 * rows * (c + MMA_PAD):
+            return SMEM_LIMIT + 1
+        return mma_smem_bytes(c, UP_TILE_ROWS, rows, tile + 2 * p_post, 2,
+                              2 if mode == F32 else 1)
+
+    return pick_tile(smem)
+
+
+WGMMA_CHANNELS = 64  # the channel count whose GEMMs run on ``wgmma``
+
+
+def _tile_layout(tiles: torch.Tensor) -> torch.Tensor:
+    """Weight tiles (n, K, C) [Cin][Cout] in the layout their MMA reads: at
+    C = 32 row-major as they are (``ldmatrix``); at C = 64 as ``wgmma`` reads
+    a K-major B operand without swizzle, 8 x 8 core matrices of 128 contiguous
+    bytes, [C / 8][K / 8][8 columns][8 rows]."""
+    n, k, c = tiles.shape
+    if c != WGMMA_CHANNELS:
+        return tiles
+    return tiles.reshape(n, k // 8, 8, c // 8, 8).permute(0, 3, 1, 4, 2)
+
+
+def pack_mrf_weights(branches: List[BranchWeights], device=None) -> torch.Tensor:
+    """The stage's conv weights as one flat bf16 tensor of (C, C) tiles
+    [branch][pair][conv1, conv2][tap], each [Cin][Cout] in :func:`_tile_layout`:
+    the order in which the tensor-core kernels consume them, tap by tap."""
+    tiles = torch.cat([w[j] for w1, _, w2, _ in branches for j in range(w1.shape[0])
+                       for w in (w1, w2)])
+    return _tile_layout(tiles).reshape(-1).to(device=device, dtype=torch.bfloat16).contiguous()
+
+
+def up_tap_order(up_kernel: int, up_stride: int, up_padding: int) -> List[int]:
+    """The ConvTranspose1d taps in the order of its polyphase form: output
+    rows ``n = stride * j + phase`` take the taps ``t = (phase + padding) mod
+    stride + i * stride``, each from input row ``j + (phase + padding - t) /
+    stride``. (4, 2, 1): even rows taps 1 and 3, odd rows taps 0 and 2.)"""
+    return [t for phase in range(up_stride)
+            for t in range((phase + up_padding) % up_stride, up_kernel, up_stride)]
+
+
+def pack_up_weights(up_weight: torch.Tensor, up_stride: int, up_padding: int,
+                    device=None) -> torch.Tensor:
+    """torch's ConvTranspose1d weight (Cin, Cout, k) as flat bf16 tiles
+    [tap in :func:`up_tap_order`][Cin / 64], each [64][Cout] in
+    :func:`_tile_layout`."""
+    order = up_tap_order(up_weight.shape[2], up_stride, up_padding)
+    w = up_weight.permute(2, 0, 1)[order]  # (k, Cin, Cout) in the order of use
+    tiles = w.reshape(-1, UP_TILE_ROWS, w.shape[2])
+    return _tile_layout(tiles).reshape(-1).to(device=device, dtype=torch.bfloat16).contiguous()
+
+
+class PackedMRF(NamedTuple):
+    """:func:`mrf_stage`'s weights as its tensor-core kernel reads them: ``w``
+    the bf16 tiles of :func:`pack_mrf_weights`, ``bias`` f32 holding bf16
+    values, [branch][b1 of every pair, b2 of every pair][C]."""
+    w: torch.Tensor
+    bias: torch.Tensor
+
+
+class PackedUpMRF(NamedTuple):
+    """:func:`up_mrf_stage`'s weights as its tensor-core kernel reads them:
+    ``w`` the bf16 tiles of the upsample, then of the MRF convs; ``up_bias``
+    and ``bias`` f32 holding bf16 values; ``post_weight`` conv_post's as
+    (k_post, Cout), or one zero where there is no tail."""
+    w: torch.Tensor
+    up_bias: torch.Tensor
+    bias: torch.Tensor
+    post_weight: torch.Tensor
+
+
+def pack_mrf_stage(branches: List[BranchWeights], device=None) -> PackedMRF:
+    """The ``packed`` argument of :func:`mrf_stage` for a bf16 ``x``: made
+    once per weight set, so a request does not round and lay them out again."""
+    return PackedMRF(pack_mrf_weights(branches, device),
+                     _flat_biases(branches, torch.bfloat16, device))
+
+
+def pack_up_mrf_stage(up_weight: torch.Tensor, up_bias: torch.Tensor, up_stride: int,
+                      up_padding: int, branches: List[BranchWeights],
+                      post_weight: Optional[torch.Tensor] = None, device=None) -> PackedUpMRF:
+    """The ``packed`` argument of :func:`up_mrf_stage` where its weights are
+    bf16 values (``hifi``, or a bf16 ``u``), as :func:`pack_mrf_stage`."""
+    bf16 = torch.bfloat16
+    wpost = (torch.zeros(1) if post_weight is None else _round_to(post_weight, bf16)[0].t())
+    return PackedUpMRF(
+        torch.cat([pack_up_weights(up_weight, up_stride, up_padding, device),
+                   pack_mrf_weights(branches, device)]),
+        _round_to(up_bias, bf16).to(device).contiguous(), _flat_biases(branches, bf16, device),
+        wpost.to(device).contiguous())
+
+
+def _check_packed(name: str, x: torch.Tensor, bf16_weights: bool, got: Sequence[torch.Tensor],
+                  sizes: Sequence[int]) -> None:
+    if not bf16_weights:
+        raise ValueError(f"{name}: packed weights are bf16 tiles, and this input keeps its "
+                         "weights in f32")
+    if any(t.device != x.device or t.numel() != n for t, n in zip(got, sizes)):
+        raise ValueError(f"{name}: packed weights do not match the branches, the channel "
+                         "counts or x's device")
 
 
 def mrf_stage(x: torch.Tensor, branches: List[BranchWeights], kernel_sizes: Sequence[int],
               dilations: Sequence[int] = DILATIONS, f32_storage: bool = False,
               x2: bool = False, mask_edges: bool = True,
-              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+              out_dtype: Optional[torch.dtype] = None,
+              packed: Optional[PackedMRF] = None) -> torch.Tensor:
     """One fused MRF stage over ``x (B, T, C)`` (port of ``fused_mrf_stage_packed``).
 
     Modes as the JAX function's: bf16 ``x`` alone -> BF16; with
@@ -271,7 +454,14 @@ def mrf_stage(x: torch.Tensor, branches: List[BranchWeights], kernel_sizes: Sequ
 
     The A/B variants' options: ``mask_edges=False`` drops the zeroing outside
     ``[0, T)`` after each conv, and ``out_dtype=torch.bfloat16`` rounds the
-    F32_STORAGE result to bf16 (any other ``out_dtype`` must be the mode's own)."""
+    F32_STORAGE result to bf16 (any other ``out_dtype`` must be the mode's own).
+
+    On the card a bf16 ``x`` (bf16-valued weights, every mode) runs on the
+    tensor cores; an f32 ``x`` keeps its weights in f32, which a product of
+    bf16 pairs does not compute, so that case alone runs the f32 FMA kernel
+    (``svt_mrf_stage_fma``, counted as ``mrf_stage_fma``). ``packed``: the
+    weights from :func:`pack_mrf_stage` for these branches (a bf16 ``x``
+    only), else they are packed on each call."""
     _check_input("mrf_stage", x)
     mode = _mrf_mode(x.dtype, f32_storage, x2)
     own = torch.bfloat16 if mode == BF16 else torch.float32
@@ -281,10 +471,14 @@ def mrf_stage(x: torch.Tensor, branches: List[BranchWeights], kernel_sizes: Sequ
                          "(bf16 is an option of f32_storage only)")
     out_bf16 = (out_dtype or own) == torch.bfloat16
     variant = not mask_edges or out_bf16 != (mode == BF16)
-    branches = [tuple(_round_to(a, x.dtype) for a in br) for br in branches]
     bsz, t, c = x.shape
     _check_branches(branches, kernel_sizes, dilations, c)
+    if packed is not None:
+        n_w = 2 * len(dilations) * sum(kernel_sizes) * c * c
+        _check_packed("mrf_stage", x, x.dtype == torch.bfloat16, packed,
+                      (n_w, 2 * len(dilations) * len(branches) * c))
     if x.device.type == "cpu":
+        branches = [tuple(_round_to(a, x.dtype) for a in br) for br in branches]
         return mrf_stage_plain(x, branches, kernel_sizes, dilations, mode, mask_edges,
                                out_bf16)
 
@@ -294,14 +488,23 @@ def mrf_stage(x: torch.Tensor, branches: List[BranchWeights], kernel_sizes: Sequ
         raise ValueError("mrf_stage kernel: batch above 65535")
     x = x.contiguous()
     radius = stage_radius(kernel_sizes, dilations)
-    tile = pick_tile(lambda tl: 4 * (3 * (tl + 2 * radius) * (c + 1) + tl * c))
-    w, b, ints = _branch_args(branches, kernel_sizes, dilations, x.device)
+    ints = _branch_ints(branches, kernel_sizes, dilations)
     out = torch.empty((bsz, t, c), device=x.device,
                       dtype=torch.bfloat16 if out_bf16 else torch.float32)
+    name = "mrf_stage_variant" if variant else "mrf_stage"
+    if x.dtype == torch.bfloat16:
+        tile = mrf_stage_tile(c, mode, radius)
+        w, b = packed or pack_mrf_stage(branches, x.device)
+        entry = load_library().svt_mrf_stage
+    else:
+        tile = pick_tile(lambda tl: 4 * (3 * (tl + 2 * radius) * (c + 1) + tl * c))
+        w = _flat_weights(branches, x.device)
+        b = _flat_biases(branches, torch.float32, x.device)
+        entry = load_library().svt_mrf_stage_fma
+        name += "_fma"
     with torch.cuda.device(x.device):
-        launch("mrf_stage_variant" if variant else "mrf_stage", load_library().svt_mrf_stage,
-               x.data_ptr(), out.data_ptr(), w.data_ptr(), b.data_ptr(), bsz, t, c, tile,
-               radius, *ints, mode, int(x.dtype == torch.bfloat16), int(mask_edges),
+        launch(name, entry, x.data_ptr(), out.data_ptr(), w.data_ptr(), b.data_ptr(), bsz, t,
+               c, tile, radius, *ints, mode, int(x.dtype == torch.bfloat16), int(mask_edges),
                int(out_bf16))
     return out
 
@@ -317,7 +520,7 @@ def mrf_stage_unpacked(x: torch.Tensor, branches: List[BranchWeights],
 
     The CUDA kernel runs one residual pair of one branch per launch, over
     time tiles with that pair's own halo, so its shared memory fits at
-    C = 256 (``csrc/mrf_stage.cu:svt_mrf_stage_unpacked``)."""
+    C = 256 (``csrc/mrf_stage_fma.cu:svt_mrf_stage_unpacked``)."""
     _check_input("mrf_stage_unpacked", x)
     mode = BF16 if x.dtype == torch.bfloat16 else F32
     branches = [tuple(_round_to(a, x.dtype) for a in br) for br in branches]
@@ -335,7 +538,9 @@ def mrf_stage_unpacked(x: torch.Tensor, branches: List[BranchWeights],
     halo = h * max(dilations) + 2 * h  # conv1's operand halo plus conv2's
     elt = 2 if mode == BF16 else 4  # shared memory stores the mode's own type
     tile = pick_tile(lambda tl: elt * (2 * tl + 2 * halo) * (c + 1))
-    w, b, ints = _branch_args(branches, kernel_sizes, dilations, x.device)
+    w = _flat_weights(branches, x.device)
+    b = _flat_biases(branches, x.dtype, x.device)
+    ints = _branch_ints(branches, kernel_sizes, dilations)
     out = torch.empty_like(x)
     n_pairs, n_branches = len(dilations), len(branches)
     # ping-pong branch states and the f32 branch sum: only where the chain needs them
@@ -357,21 +562,25 @@ def up_mrf_stage(u: torch.Tensor, up_weight: torch.Tensor, up_bias: torch.Tensor
                  branches: List[BranchWeights], kernel_sizes: Sequence[int],
                  dilations: Sequence[int] = DILATIONS,
                  post_weight: Optional[torch.Tensor] = None,
-                 hifi: bool = False) -> torch.Tensor:
+                 hifi: bool = False, packed: Optional[PackedUpMRF] = None) -> torch.Tensor:
     """lrelu -> ConvTranspose1d -> MRF stage [-> lrelu(0.01) -> conv_post ->
     tanh] over ``u (B, Tu, Cin)`` (port of ``fused_up_mrf_stage``).
 
     ``up_weight`` is torch's ``(Cin, Cout, k)``; ``post_weight`` torch's
     ``(1, Cout, k_post)``. ``hifi`` (or an f32 ``u``) runs F32 mode with
     weights rounded to bf16 under ``hifi``; a bf16 ``u`` alone runs BF16.
-    Returns (B, Tu*s, Cout), or the waveform (B, Tu*s, 1) with ``post_weight``."""
+    Returns (B, Tu*s, Cout), or the waveform (B, Tu*s, 1) with ``post_weight``.
+
+    On the card the upsample and the MRF convs run on the tensor cores
+    wherever the weights are bf16 values (``hifi``, or a bf16 ``u``); an f32
+    ``u`` without ``hifi`` keeps f32 weights, which a product of bf16 pairs
+    does not compute, so that case alone runs the f32 FMA kernel
+    (``svt_up_mrf_stage_fma``, counted as ``up_mrf_stage_fma``). ``packed``:
+    the weights from :func:`pack_up_mrf_stage` for these arguments (bf16-valued
+    weights only), else they are packed on each call."""
     _check_input("up_mrf_stage", u)
     mode = F32 if (hifi or u.dtype == torch.float32) else BF16
     wdt = torch.bfloat16 if hifi else u.dtype
-    up_weight, up_bias = _round_to(up_weight, wdt), _round_to(up_bias, wdt)
-    branches = [tuple(_round_to(a, wdt) for a in br) for br in branches]
-    if post_weight is not None:
-        post_weight = _round_to(post_weight, wdt)
     bsz, tu, cin = u.shape
     cout = up_weight.shape[1]
     if tuple(up_weight.shape) != (cin, cout, up_kernel) or up_kernel - 2 * up_padding != up_stride:
@@ -381,18 +590,41 @@ def up_mrf_stage(u: torch.Tensor, up_weight: torch.Tensor, up_bias: torch.Tensor
     if post_weight is not None and (tuple(post_weight.shape[:2]) != (1, cout)
                                     or post_weight.shape[2] % 2 == 0):
         raise ValueError(f"up_mrf_stage: post weight {tuple(post_weight.shape)}")
+    k_post = 0 if post_weight is None else post_weight.shape[2]
+    if packed is not None:
+        n_w = (up_kernel * cin + 2 * len(dilations) * sum(kernel_sizes) * cout) * cout
+        _check_packed("up_mrf_stage", u, wdt == torch.bfloat16, packed,
+                      (n_w, cout, 2 * len(dilations) * len(branches) * cout,
+                       max(1, k_post * cout)))
     if u.device.type == "cpu":
-        return up_mrf_stage_plain(u, up_weight, up_bias, up_stride, up_padding, branches,
-                                  kernel_sizes, dilations, mode, post_weight)
+        return up_mrf_stage_plain(
+            u, _round_to(up_weight, wdt), _round_to(up_bias, wdt), up_stride, up_padding,
+            [tuple(_round_to(a, wdt) for a in br) for br in branches], kernel_sizes, dilations,
+            mode, None if post_weight is None else _round_to(post_weight, wdt))
 
     if (cin, cout) not in UP_CHANNELS:
         raise ValueError(f"up_mrf_stage kernel: (Cin, Cout)=({cin}, {cout}) not in {UP_CHANNELS}")
     if bsz > 65535:
         raise ValueError("up_mrf_stage kernel: batch above 65535")
     u = u.contiguous()
-    k_post = 0 if post_weight is None else post_weight.shape[2]
     p_post = max(0, (k_post - 1) // 2)
     halo = stage_radius(kernel_sizes, dilations) + p_post
+    ints = _branch_ints(branches, kernel_sizes, dilations)
+    dev = u.device
+    t = tu * up_stride
+    out_dtype = torch.bfloat16 if mode == BF16 else torch.float32
+    out = torch.empty((bsz, t, 1 if k_post else cout), device=dev, dtype=out_dtype)
+    geometry = (bsz, tu, cin, cout, up_kernel, up_stride, up_padding)
+    tail = (*ints, mode, int(u.dtype == torch.bfloat16))
+    if wdt == torch.bfloat16:
+        tile = up_mrf_stage_tile(cin, cout, mode, halo, p_post, up_kernel, up_stride)
+        w, bup, b, wpost = packed or pack_up_mrf_stage(up_weight, up_bias, up_stride,
+                                                       up_padding, branches, post_weight, dev)
+        with torch.cuda.device(dev):
+            launch("up_mrf_stage", load_library().svt_up_mrf_stage, u.data_ptr(),
+                   out.data_ptr(), w.data_ptr(), bup.data_ptr(), b.data_ptr(),
+                   wpost.data_ptr(), *geometry, tile, halo, k_post, *tail)
+        return out
 
     def smem(tile):
         rows = tile + 2 * halo
@@ -402,17 +634,14 @@ def up_mrf_stage(u: torch.Tensor, up_weight: torch.Tensor, up_bias: torch.Tensor
         return 4 * (4 * rows * (cout + 1) + (tile + 2 * p_post) * cout)
 
     tile = pick_tile(smem)
-    w, b, ints = _branch_args(branches, kernel_sizes, dilations, u.device)
-    wup = up_weight.permute(2, 0, 1).to(u.device, torch.float32).contiguous()  # (k, Cin, Cout)
-    bup = up_bias.to(u.device, torch.float32).contiguous()
-    wpost = (torch.zeros(1, device=u.device) if post_weight is None else
-             post_weight[0].t().to(u.device, torch.float32).contiguous())  # (k_post, Cout)
-    t = tu * up_stride
-    out_dtype = torch.bfloat16 if mode == BF16 else torch.float32
-    out = torch.empty((bsz, t, 1 if k_post else cout), device=u.device, dtype=out_dtype)
-    with torch.cuda.device(u.device):
-        launch("up_mrf_stage", load_library().svt_up_mrf_stage, u.data_ptr(), out.data_ptr(),
-               wup.data_ptr(), bup.data_ptr(), w.data_ptr(), b.data_ptr(), wpost.data_ptr(),
-               bsz, tu, cin, cout, up_kernel, up_stride, up_padding, tile, halo, k_post,
-               *ints, mode, int(u.dtype == torch.bfloat16))
+    w = _flat_weights(branches, dev)
+    b = _flat_biases(branches, torch.float32, dev)
+    bup = up_bias.to(dev, torch.float32).contiguous()
+    wpost = (torch.zeros(1, device=dev) if post_weight is None else
+             post_weight[0].t().to(dev, torch.float32).contiguous())  # (k_post, Cout)
+    wup = up_weight.permute(2, 0, 1).to(dev, torch.float32).contiguous()  # (k, Cin, Cout)
+    with torch.cuda.device(dev):
+        launch("up_mrf_stage_fma", load_library().svt_up_mrf_stage_fma, u.data_ptr(),
+               out.data_ptr(), wup.data_ptr(), bup.data_ptr(), w.data_ptr(), b.data_ptr(),
+               wpost.data_ptr(), *geometry, tile, halo, k_post, *tail)
     return out

@@ -32,7 +32,7 @@ import sys
 import torch
 
 from smart_vocoder_torch.kernels import LAUNCHES, mrf_stage
-from smart_vocoder_torch.kernels.mrf import DILATIONS, stage_radius
+from smart_vocoder_torch.kernels.mrf import DILATIONS, pack_mrf_stage, stage_radius
 from smart_vocoder_torch.tools import time_ms
 from smart_vocoder_torch.utils.device import resolve_device
 
@@ -67,6 +67,7 @@ def main(stage: int = 3, iters: int = 10, names=None, device=None, batch: int = 
     branches = [tuple(normal(s, 0.05) for s in ((3, k, c, c), (3, c), (3, k, c, c), (3, c)))
                 for k in KS]
     x = normal((batch, t, c), 0.3)
+    packed = pack_mrf_stage(branches, dev)  # once, as a serving path holds them
     radius = stage_radius(KS, DILATIONS)
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"stage{stage} ({t}x{c}) B={batch} bf16 on {where}, {iters} iterations", flush=True)
@@ -77,8 +78,9 @@ def main(stage: int = 3, iters: int = 10, names=None, device=None, batch: int = 
             continue
         kw = VARIANTS[name]
         before = sum(LAUNCHES.values())
-        out = mrf_stage(x, branches, KS, DILATIONS, **kw)
-        ms = time_ms(lambda: mrf_stage(x, branches, KS, DILATIONS, **kw), iters, dev)
+        out = mrf_stage(x, branches, KS, DILATIONS, packed=packed, **kw)
+        ms = time_ms(lambda: mrf_stage(x, branches, KS, DILATIONS, packed=packed, **kw), iters,
+                     dev)
         results[name] = {"ms": ms, "chk": out.float().sum().item(),
                          "chk_central": out[:, radius:t - radius].float().sum().item(),
                          "launches": sum(LAUNCHES.values()) - before}

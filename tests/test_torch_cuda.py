@@ -11,7 +11,9 @@ Inputs are small and ragged (T not a multiple of any tile), so the halos
 cross tile seams and the sequence ends inside a tile; the WN stack also has a
 partial mask and a partial last chunk of layers. Tolerances:
 - F32 modes (f32, x2, hifi): 3e-4 -- f32 summation order only, with the plain
-  version's cuDNN convolutions held to full f32 (TF32 off).
+  version's cuDNN convolutions held to full f32 (TF32 off). "f32" (true-f32
+  weights) runs the two stages' FMA kernels; x2 and hifi run the tensor-core
+  kernels on hi + lo bf16 planes, which reconstruct an operand to 2^-16.
 - bf16-rounding modes: one residual pair must round at the same points
   (under 1% of values differ, each by a summation-order flip of one
   rounding); the full stage must stay under half the distance from the F32
@@ -92,10 +94,11 @@ def test_mrf_stage_kernel_matches_plain(c, mode, one_pair):
     x = torch.from_numpy(rng.normal(0, 0.5, (2, 1000, c)).astype(np.float32))
     x = x.to(dtype).cuda()
     kw = {"f32_storage": mode == "f32_storage", "x2": mode == "x2"}
-    before = tmrf.LAUNCHES["mrf_stage"]
+    name = "mrf_stage_fma" if mode == "f32" else "mrf_stage"  # f32 weights: the FMA body
+    before = dict(tmrf.LAUNCHES)
     got = tmrf.mrf_stage(x, br, ks, dil, **kw)
     torch.cuda.synchronize()
-    assert tmrf.LAUNCHES["mrf_stage"] == before + 1
+    assert {k: v - before[k] for k, v in tmrf.LAUNCHES.items() if v != before[k]} == {name: 1}
     m = tmrf._mrf_mode(x.dtype, **kw)
     want = tmrf.mrf_stage_plain(x, br, ks, dil, m)
     assert got.dtype == want.dtype and got.shape == want.shape
@@ -125,11 +128,12 @@ def test_up_mrf_stage_kernel_matches_plain(post, mode, one_pair):
     if mode == "bf16":
         u = u.bfloat16()
     pw = post_w if post else None
-    before = tmrf.LAUNCHES["up_mrf_stage"]
+    name = "up_mrf_stage_fma" if mode == "f32" else "up_mrf_stage"
+    before = dict(tmrf.LAUNCHES)
     got = tmrf.up_mrf_stage(u, up_w, up_b, 4, 2, 1, br, ks, dil, post_weight=pw,
                             hifi=mode == "hifi")
     torch.cuda.synchronize()
-    assert tmrf.LAUNCHES["up_mrf_stage"] == before + 1
+    assert {k: v - before[k] for k, v in tmrf.LAUNCHES.items() if v != before[k]} == {name: 1}
     m = tmrf.BF16 if mode == "bf16" else tmrf.F32
     want = tmrf.up_mrf_stage_plain(u, up_w, up_b, 2, 1, br, ks, dil, m, pw)
     assert got.dtype == want.dtype and got.shape == want.shape == (2, 2 * tu, 1 if post else cout)
@@ -138,6 +142,129 @@ def test_up_mrf_stage_kernel_matches_plain(post, mode, one_pair):
     else:
         exact = tmrf.up_mrf_stage_plain(u, up_w, up_b, 2, 1, br, ks, dil, tmrf.F32, pw)
         _check_rounding_mode(got, want, exact, one_pair)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [777, 1, 63, 65])
+@pytest.mark.parametrize("mode", ["x2", "bf16", "f32_storage"])
+def test_mrf_stage_kernel_at_lengths_off_the_mma_tiles(t, mode):
+    """Lengths that are no multiple of the 16-row MMA tile or of the time
+    tile: the last warp tile is ragged and the sequence ends inside it."""
+    rng = np.random.default_rng(t)
+    c = 64
+    br = _branches(rng, c, KS, DIL, 0.02, torch.bfloat16)
+    x = torch.from_numpy(rng.normal(0, 0.5, (3, t, c)).astype(np.float32)).bfloat16().cuda()
+    kw = {"f32_storage": mode == "f32_storage", "x2": mode == "x2"}
+    got = tmrf.mrf_stage(x, br, KS, DIL, **kw)
+    torch.cuda.synchronize()
+    m = tmrf._mrf_mode(x.dtype, **kw)
+    want = tmrf.mrf_stage_plain(x, br, KS, DIL, m)
+    assert got.dtype == want.dtype and got.shape == want.shape == (3, t, c)
+    if m == tmrf.F32:
+        torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-4)
+    else:
+        _check_rounding_mode(got, want, tmrf.mrf_stage_plain(x, br, KS, DIL, tmrf.F32), False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tu", [1, 63, 65])
+@pytest.mark.parametrize("mode", ["hifi", "bf16"])
+def test_up_mrf_stage_kernel_at_lengths_off_the_mma_tiles(tu, mode):
+    rng = np.random.default_rng(tu)
+    cin, cout = 64, 32
+
+    def w(*shape):
+        return (torch.from_numpy(rng.normal(0, 0.1, shape).astype(np.float32))
+                .bfloat16().float().cuda())
+
+    up_w, up_b, post_w = w(cin, cout, 4), w(cout), w(1, cout, 7)
+    br = _branches(rng, cout, KS, DIL, 0.03, torch.bfloat16)
+    u = torch.from_numpy(rng.normal(0, 0.5, (3, tu, cin)).astype(np.float32)).cuda()
+    if mode == "bf16":
+        u = u.bfloat16()
+    got = tmrf.up_mrf_stage(u, up_w, up_b, 4, 2, 1, br, KS, DIL, post_weight=post_w,
+                            hifi=mode == "hifi")
+    torch.cuda.synchronize()
+    m = tmrf.BF16 if mode == "bf16" else tmrf.F32
+    want = tmrf.up_mrf_stage_plain(u, up_w, up_b, 2, 1, br, KS, DIL, m, post_w)
+    assert got.dtype == want.dtype and got.shape == want.shape == (3, 2 * tu, 1)
+    if m == tmrf.F32:
+        torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-4)
+    else:
+        exact = tmrf.up_mrf_stage_plain(u, up_w, up_b, 2, 1, br, KS, DIL, tmrf.F32, post_w)
+        _check_rounding_mode(got, want, exact, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [32, 64])
+def test_mrf_weights_packed_once_give_the_same_bits(c):
+    """``pack_mrf_stage`` / ``pack_up_mrf_stage`` once, against packing on each
+    call, at both channel counts (``mma.sync`` tiles at 32, ``wgmma`` tiles
+    at 64); packed bf16 tiles are refused where the weights stay f32."""
+    rng = np.random.default_rng(c + 1)
+    br = _branches(rng, c, KS, DIL, 0.02, torch.bfloat16)
+    x = torch.from_numpy(rng.normal(0, 0.5, (2, 500, c)).astype(np.float32)).bfloat16().cuda()
+    packed = tmrf.pack_mrf_stage(br, x.device)
+    for kw in ({}, {"f32_storage": True}, {"x2": True}, {"mask_edges": False}):
+        assert torch.equal(tmrf.mrf_stage(x, br, KS, DIL, packed=packed, **kw),
+                           tmrf.mrf_stage(x, br, KS, DIL, **kw))
+    with pytest.raises(ValueError):
+        tmrf.mrf_stage(x.float(), br, KS, DIL, packed=packed)
+    with pytest.raises(ValueError):  # packed on the card, x on the CPU
+        tmrf.mrf_stage(x.cpu(), br, KS, DIL, packed=packed)
+
+    def w(*shape):
+        return (torch.from_numpy(rng.normal(0, 0.05, shape).astype(np.float32))
+                .bfloat16().float().cuda())
+
+    up_w, up_b = w(2 * c, c, 4), w(c)
+    post_w = w(1, c, 7) if c == 32 else None
+    u = torch.from_numpy(rng.normal(0, 0.5, (2, 250, 2 * c)).astype(np.float32)).cuda()
+    up = tmrf.pack_up_mrf_stage(up_w, up_b, 2, 1, br, post_w, u.device)
+    for uu, hifi in ((u, True), (u.bfloat16(), False)):
+        assert torch.equal(
+            tmrf.up_mrf_stage(uu, up_w, up_b, 4, 2, 1, br, KS, DIL, post_weight=post_w,
+                              hifi=hifi, packed=up),
+            tmrf.up_mrf_stage(uu, up_w, up_b, 4, 2, 1, br, KS, DIL, post_weight=post_w,
+                              hifi=hifi))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["mrf_stage", "up_mrf_stage"])
+def test_hi_lo_mode_across_magnitudes(kernel):
+    """The hi/lo modes (x2, hifi) with inputs from 2^-20 to 2^4, one batch row
+    per magnitude. Without biases the stage is positively homogeneous, so each
+    row's result scales with its input and is held to 3e-4 of its own largest
+    entry: a split that lost its lo plane (2^-8 relative) or flushed small
+    values would show in the rows it touches."""
+    rng = np.random.default_rng(6)
+    exps = (-20, -16, -12, -8, -4, 0, 4)
+    scale = torch.tensor([2.0 ** e for e in exps])[:, None, None]
+    if kernel == "mrf_stage":
+        c = 64
+        br = [tuple(torch.zeros_like(a) if a.ndim == 2 else a for a in b)
+              for b in _branches(rng, c, KS, DIL, 0.02, torch.bfloat16)]
+        base = torch.from_numpy(rng.normal(0, 0.5, (len(exps), 300, c)).astype(np.float32))
+        x = (base.bfloat16().float() * scale).bfloat16().cuda()  # exact: powers of two
+        got = tmrf.mrf_stage(x, br, KS, DIL, x2=True)
+        want = tmrf.mrf_stage_plain(x, br, KS, DIL, tmrf.F32)
+    else:
+        cin, cout = 64, 32
+        br = [tuple(torch.zeros_like(a) if a.ndim == 2 else a for a in b)
+              for b in _branches(rng, cout, KS, DIL, 0.03, torch.bfloat16)]
+        up_w = (torch.from_numpy(rng.normal(0, 0.1, (cin, cout, 4)).astype(np.float32))
+                .bfloat16().float().cuda())
+        up_b = torch.zeros(cout, device="cuda")
+        u = (torch.from_numpy(rng.normal(0, 0.5, (len(exps), 150, cin)).astype(np.float32))
+             * scale).cuda()
+        got = tmrf.up_mrf_stage(u, up_w, up_b, 4, 2, 1, br, KS, DIL, hifi=True)
+        want = tmrf.up_mrf_stage_plain(u, up_w, up_b, 2, 1, br, KS, DIL, tmrf.F32)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    for i in range(len(exps)):
+        top = want[i].abs().max().item()
+        assert top > 0 and (got[i] - want[i]).abs().max().item() <= 3e-4 * top, (exps[i], top)
 
 
 @pytest.mark.cuda
@@ -181,10 +308,11 @@ def test_up_mrf_stage_128_to_64_kernel_matches_plain(mode, one_pair):
     up_w, up_b = w(cin, cout, 4), w(cout)
     br = _branches(rng, cout, ks, dil, 0.03, wdt)
     u = torch.from_numpy(rng.normal(0, 0.5, (2, tu, cin)).astype(np.float32)).to(wdt).cuda()
-    before = tmrf.LAUNCHES["up_mrf_stage"]
+    name = "up_mrf_stage_fma" if mode == "f32" else "up_mrf_stage"
+    before = tmrf.LAUNCHES[name]
     got = tmrf.up_mrf_stage(u, up_w, up_b, 4, 2, 1, br, ks, dil)
     torch.cuda.synchronize()
-    assert tmrf.LAUNCHES["up_mrf_stage"] == before + 1
+    assert tmrf.LAUNCHES[name] == before + 1
     m = tmrf.BF16 if mode == "bf16" else tmrf.F32
     want = tmrf.up_mrf_stage_plain(u, up_w, up_b, 2, 1, br, ks, dil, m)
     assert got.dtype == want.dtype and got.shape == want.shape == (2, 2 * tu, cout)

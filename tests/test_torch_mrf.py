@@ -363,3 +363,245 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):  # output length would not be Tu * stride
         tmrf.up_mrf_stage(torch.zeros(1, 32, 64), torch.zeros(64, 32, 5), torch.zeros(32),
                           5, 2, 1, br, KS, DIL)
+
+
+# ------------------------------- the tensor-core kernels' host side (CPU-testable)
+def test_split_hi_lo_reconstructs_and_bounds_the_two_pass_conv():
+    """The F32-mode kernels multiply a hi and a lo bf16 plane of each f32
+    operand against the bf16-valued weight. hi + lo is x to within 2^-16 |x|
+    (lo is the bf16 rounding of a remainder below 2^-7 |x|), both planes are
+    bf16 values, and so the two-pass conv sits within 2^-15 of the f32 conv,
+    relative to the conv of the absolute values. That is the reason the
+    kernels are held to 1e-3 in this mode: activations are O(1)."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(4)
+    mag = 2.0 ** rng.integers(-20, 5, (2, 64, 300))
+    x = torch.from_numpy((rng.normal(0, 1, mag.shape) * mag).astype(np.float32))
+    hi, lo = tmrf.split_hi_lo(x)
+    assert torch.equal(hi, hi.bfloat16().float()) and torch.equal(lo, lo.bfloat16().float())
+    assert torch.all((hi.double() + lo.double() - x.double()).abs() <= 2.0 ** -16 * x.abs())
+    assert torch.all(hi.abs() <= x.abs())  # truncation, not rounding
+    w = torch.from_numpy(rng.normal(0, 0.1, (64, 64, 7)).astype(np.float32)).bfloat16().float()
+    two_pass = F.conv1d(hi, w, padding=3) + F.conv1d(lo, w, padding=3)
+    one_pass = F.conv1d(x, w, padding=3)
+    scale = F.conv1d(x.abs(), w.abs(), padding=3)
+    assert torch.all((two_pass - one_pass).abs() <= 2.0 ** -15 * scale)
+
+
+@pytest.mark.parametrize("mode", [tmrf.BF16, tmrf.F32_STORAGE, tmrf.F32])
+@pytest.mark.parametrize("c", tmrf.MRF_CHANNELS)
+def test_mrf_stage_tile_fits_the_block(c, mode):
+    radius = tmrf.stage_radius(KS, DIL)
+    tile = tmrf.mrf_stage_tile(c, mode, radius)
+    rows = tile + 2 * radius
+    assert rows <= tmrf.MMA_MAX_ROWS
+    assert tmrf.mma_smem_bytes(c, c, rows, tile, 1, 2 if mode == tmrf.F32 else 1) \
+        <= tmrf.SMEM_LIMIT
+    assert tile == (64 if (c, mode) == (64, tmrf.F32) else 128)
+    with pytest.raises(ValueError):  # no tile leaves room for a 130-row halo
+        tmrf.mrf_stage_tile(c, mode, 130)
+
+
+@pytest.mark.parametrize("k_post", [0, 7])
+@pytest.mark.parametrize("mode", [tmrf.BF16, tmrf.F32])
+@pytest.mark.parametrize("channels", tmrf.UP_CHANNELS)
+def test_up_mrf_stage_tile_fits_the_block(channels, mode, k_post):
+    cin, c = channels
+    p_post = max(0, (k_post - 1) // 2)
+    halo = tmrf.stage_radius(KS, DIL) + p_post
+    tile = tmrf.up_mrf_stage_tile(cin, c, mode, halo, p_post, 4, 2)
+    rows = tile + 2 * halo
+    assert rows <= tmrf.MMA_MAX_ROWS
+    assert tmrf.mma_smem_bytes(c, tmrf.UP_TILE_ROWS, rows, tile + 2 * p_post, 2,
+                               2 if mode == tmrf.F32 else 1) <= tmrf.SMEM_LIMIT
+    # the u tile fits in the two operand buffers it aliases
+    assert ((rows + 4) // 2 + 2) * (cin + tmrf.MMA_PAD) <= 2 * rows * (c + tmrf.MMA_PAD)
+    assert tile == {(64, 32): 128, (128, 64): 32 if mode == tmrf.F32 else 64}[channels]
+
+
+def _row_major(flat, n, k, c):
+    """Packed tiles back as (n, K, C) [Cin][Cout]: at C = 64 out of the
+    ``wgmma`` core-matrix layout [C / 8][K / 8][8 columns][8 rows]."""
+    if c != tmrf.WGMMA_CHANNELS:
+        return flat.reshape(n, k, c)
+    return flat.reshape(n, c // 8, k // 8, 8, 8).permute(0, 2, 4, 1, 3).reshape(n, k, c)
+
+
+def test_packed_weights_round_trip():
+    """bf16 tiles in the order of use: [branch][pair][conv1, conv2][tap] for
+    the MRF convs, [tap in polyphase order][Cin / 64] for the upsample; each
+    tile [Cin][Cout], row-major at C = 32 and in ``wgmma``'s K-major core
+    matrices at C = 64."""
+    for c in tmrf.MRF_CHANNELS:
+        _check_round_trip(c)
+
+
+def _check_round_trip(c):
+    rng = np.random.default_rng(8)
+    br = _tb(_branches(rng, c))
+    packed = tmrf.pack_mrf_weights(br)
+    assert packed.dtype == torch.bfloat16 and packed.ndim == 1 and packed.is_contiguous()
+    assert packed.numel() == 2 * 3 * sum(KS) * c * c
+    tiles = _row_major(packed.float(), 2 * 3 * sum(KS), c, c)
+    at = 0
+    for (w1, _, w2, _), k in zip(br, KS):  # per branch: pairs of (conv1, conv2), tap-major
+        convs = tiles[at:at + 2 * 3 * k].reshape(3, 2, k, c, c)
+        assert torch.equal(convs[:, 0], w1.bfloat16().float())
+        assert torch.equal(convs[:, 1], w2.bfloat16().float())
+        at += 2 * 3 * k
+    # the first tile is tap 0 of conv1 of pair 0, the next k tiles later conv2's tap 0
+    assert torch.equal(tiles[0], br[0][0][0, 0].bfloat16().float())
+    assert torch.equal(tiles[KS[0]], br[0][2][0, 0].bfloat16().float())
+    if c == tmrf.WGMMA_CHANNELS:  # element (k, n) of a tile, in bf16 elements
+        k_, n_ = 19, 42
+        at = (n_ // 8) * 512 + (k_ // 8) * 64 + (n_ % 8) * 8 + k_ % 8
+        assert packed[c * c + at] == br[0][0][0, 1, k_, n_].bfloat16()
+    up_w = torch.from_numpy(rng.normal(0, 0.1, (2 * c, c, 4)).astype(np.float32))
+    order = tmrf.up_tap_order(4, 2, 1)
+    assert order == [1, 3, 0, 2]
+    n_up = 4 * 2 * c // tmrf.UP_TILE_ROWS
+    tiles = _row_major(tmrf.pack_up_weights(up_w, 2, 1).float(), n_up, tmrf.UP_TILE_ROWS, c)
+    for i, t in enumerate(order):
+        assert torch.equal(tiles.reshape(4, 2 * c, c)[i], up_w[:, :, t].bfloat16().float())
+
+
+@pytest.mark.parametrize("geometry", [(4, 2, 1), (16, 8, 4), (3, 1, 1), (7, 3, 2)])
+def test_up_tap_order_is_the_polyphase_form_of_the_transposed_conv(geometry):
+    """Output rows n = s*j + phase are the sum over that phase's taps t of
+    u[j + (phase + p - t) / s] @ W[t]: what the kernel's upsample computes."""
+    import torch.nn.functional as F
+
+    k, s, p = geometry
+    rng = np.random.default_rng(k)
+    u = torch.from_numpy(rng.normal(0, 1, (1, 6, 37)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(0, 1, (6, 5, k)).astype(np.float32))
+    want = F.conv_transpose1d(u, w, stride=s, padding=p)[0].t()  # (Tu*s, Cout)
+    order = tmrf.up_tap_order(k, s, p)
+    assert sorted(order) == list(range(k))
+    tu = u.shape[2]
+    got = torch.zeros_like(want)
+    taps = iter(order)
+    for phase in range(s):
+        for _ in range(len(range((phase + p) % s, k, s))):
+            t = next(taps)
+            assert (phase + p - t) % s == 0
+            shift = (phase + p - t) // s
+            for j in range(tu):
+                if 0 <= j + shift < tu:
+                    got[s * j + phase] += u[0, :, j + shift] @ w[:, :, t]
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_weights_are_packed_once_per_weight_set():
+    """The wrappers take the weights packed once by the caller
+    (``pack_mrf_stage``, ``pack_up_mrf_stage``) and compute the same bits as
+    when they pack on each call; packed weights that do not fit the call, or
+    bf16 tiles where the weights stay f32, are refused."""
+    rng = np.random.default_rng(9)
+    c = 32
+    br = _tb(_branches(rng, c))
+    x = torch.from_numpy(rng.normal(0, 0.5, (1, 40, c)).astype(np.float32))
+    packed = tmrf.pack_mrf_stage(br)
+    assert packed.w.dtype == torch.bfloat16 and packed.bias.dtype == torch.float32
+    assert packed.bias.shape == (3 * 2 * 3 * c,)
+    assert torch.equal(packed.bias, packed.bias.bfloat16().float())
+    assert torch.equal(packed.bias[:3 * c], br[0][1].reshape(-1).bfloat16().float())
+    xb = x.bfloat16()
+    assert torch.equal(tmrf.mrf_stage(xb, br, KS, DIL, f32_storage=True, packed=packed),
+                       tmrf.mrf_stage(xb, br, KS, DIL, f32_storage=True))
+    with pytest.raises(ValueError):  # an f32 x keeps f32 weights
+        tmrf.mrf_stage(x, br, KS, DIL, packed=packed)
+    with pytest.raises(ValueError):  # packed for three branches, given two
+        tmrf.mrf_stage(xb, br[:2], KS[:2], DIL, packed=packed)
+
+    up_w = torch.from_numpy(rng.normal(0, 0.1, (2 * c, c, 4)).astype(np.float32))
+    up_b = torch.from_numpy(rng.normal(0, 0.1, (c,)).astype(np.float32))
+    post = torch.from_numpy(rng.normal(0, 0.1, (1, c, 7)).astype(np.float32))
+    u = torch.from_numpy(rng.normal(0, 0.5, (1, 20, 2 * c)).astype(np.float32))
+    up = tmrf.pack_up_mrf_stage(up_w, up_b, 2, 1, br, post)
+    assert up.w.numel() == 4 * 2 * c * c + packed.w.numel() and up.w.dtype == torch.bfloat16
+    assert torch.equal(up.w[4 * 2 * c * c:], packed.w) and torch.equal(up.bias, packed.bias)
+    assert torch.equal(up.up_bias, up_b.bfloat16().float())
+    assert torch.equal(up.post_weight, post[0].t().bfloat16().float())  # (k_post, Cout)
+    args = (up_w, up_b, 4, 2, 1, br, KS, DIL)
+    assert torch.equal(tmrf.up_mrf_stage(u, *args, post_weight=post, hifi=True, packed=up),
+                       tmrf.up_mrf_stage(u, *args, post_weight=post, hifi=True))
+    with pytest.raises(ValueError):  # an f32 u without hifi keeps f32 weights
+        tmrf.up_mrf_stage(u, *args, post_weight=post, packed=up)
+    with pytest.raises(ValueError):  # packed with the tail, called without
+        tmrf.up_mrf_stage(u, *args, hifi=True, packed=up)
+    no_tail = tmrf.pack_up_mrf_stage(up_w, up_b, 2, 1, br)
+    assert no_tail.post_weight.shape == (1,)
+    assert torch.equal(tmrf.up_mrf_stage(u.bfloat16(), *args, packed=no_tail),
+                       tmrf.up_mrf_stage(u.bfloat16(), *args))
+
+
+def _decoder_params(rng, cfg, inter=16):
+    """Folded decoder weights of ``cfg`` in torch's layouts, from ``rng``."""
+    def t(*shape, scale=0.1):
+        return torch.from_numpy(rng.normal(0, scale, shape).astype(np.float32))
+
+    ch = cfg.upsample_initial_channel
+    p = {"conv_pre.weight": t(ch, inter, 7), "conv_pre.bias": t(ch)}
+    for i, k in enumerate(cfg.upsample_kernel_sizes):
+        p[f"ups.{i}.weight"], p[f"ups.{i}.bias"] = t(ch, ch // 2, k), t(ch // 2)
+        ch //= 2
+        for j, kb in enumerate(cfg.resblock_kernel_sizes):
+            for kind in ("convs1", "convs2"):
+                for n in range(3):
+                    pre = f"resblocks.{i * len(cfg.resblock_kernel_sizes) + j}.{kind}.{n}"
+                    p[f"{pre}.weight"], p[f"{pre}.bias"] = t(ch, ch, kb, scale=0.03), t(ch)
+    p["conv_post.weight"] = t(1, ch, 7)
+    return p
+
+
+DECODER_CASES = [("f32", 0), ("bf16", 0), ("bf16", 1), ("bf16", 2), ("bf16", 3)]
+
+
+def _small_decoder():
+    """The 128 / 64 / 32-channel config: the stage of 64 runs ``mrf_stage``,
+    or folds up under ``pallas_stage2``; the last runs ``up_mrf_stage``."""
+    from smart_vocoder_torch.kernels import decoder as tdec
+
+    cfg = tdec.DecoderConfig("1", KS, (DIL,) * 3, (4, 2, 2), 256, (8, 4, 4))
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.normal(0, 0.5, (1, 12, 16)).astype(np.float32))
+    return tdec, cfg, _decoder_params(rng, cfg), x
+
+
+def test_decoder_stacks_a_stage_s_branches_once():
+    """``pack_decoder`` stacks every stage's branches as ``_stage_branches``
+    does, once per weight set, and lays out the weights of the stages that run
+    a tensor-core kernel with bf16-valued weights."""
+    tdec, cfg, p, _ = _small_decoder()
+    for dtype, hifi in DECODER_CASES:
+        for stage2 in (False, True):
+            tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+            packed = tdec.pack_decoder(p, cfg, tdt, hifi, stage2)
+            assert len(packed) == 3
+            for i, (branches, _) in enumerate(packed):
+                fresh = tdec._stage_branches(p, i, 3, 3, tdt)
+                assert [tuple(a.shape) for a in branches[1]] == [
+                    (3, 7, c, c) if n % 2 == 0 else (3, c)
+                    for n, c in enumerate([128 >> i] * 4)]
+                assert all(a.dtype == tdt and torch.equal(a, b)
+                           for x_, y_ in zip(branches, fresh) for a, b in zip(x_, y_))
+            kinds = [type(kernel).__name__ for _, kernel in packed]
+            bf16 = dtype == "bf16"
+            # folded up, the stage of 64 takes f32 activations at hifi >= 2
+            middle = ("PackedUpMRF" if hifi < 2 else "NoneType") if stage2 else "PackedMRF"
+            assert kinds == ["NoneType", middle if bf16 else "NoneType",
+                             "PackedUpMRF" if bf16 or hifi else "NoneType"]
+
+
+@pytest.mark.parametrize("stage2", [False, True])
+@pytest.mark.parametrize("dtype,hifi", DECODER_CASES)
+def test_decoder_apply_with_packed_weights_gives_the_same_bits(dtype, hifi, stage2):
+    tdec, cfg, p, x = _small_decoder()
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    packed = tdec.pack_decoder(p, cfg, tdt, hifi, stage2)
+    got = tdec.decoder_apply(p, x, cfg, dtype=tdt, hifi_tail=hifi, pallas_stage2=stage2,
+                             packed=packed)
+    want = tdec.decoder_apply(p, x, cfg, dtype=tdt, hifi_tail=hifi, pallas_stage2=stage2)
+    assert got.shape == (1, 12 * 16, 1) and torch.equal(got, want)
