@@ -8,14 +8,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
 1. device: a CUDA card is required; prints its name and power limit.
 2. build: compiles the CUDA kernels (smart_vocoder_torch/kernels/csrc) with
    nvcc for sm_90a into smart_vocoder_torch/_build/, and counts the MMA
-   instructions in the two stage kernels' SASS (``wgmma`` at 64 channels,
-   ``mma.sync`` at 32).
+   instructions in the SASS of every bf16 instantiation of the tensor-core
+   kernels: the two stages, the unpacked stage's pair and the WN stack
+   (``wgmma`` from 64 channels, ``mma.sync`` at 32).
 3. kernels: each kernel against its plain PyTorch version on the card (TF32
    off), at the main-path shapes -- stage 3 x (2, 128000, 64), stage 4
    u (2, 128000, 64) with the conv_post tail; the WN stack at x (32, 1000,
    192) with the 16 prior layers (bf16: each launch of 4 layers on the
-   plain version's own state and skip sum; f32: the whole stack); the
-   unpacked MRF stage at x (2, 64000, 128) and (1, 8192, 256); the stage-3
+   plain version's own state and skip sum; f32, the FMA route: the whole
+   stack); the unpacked MRF stage at x (2, 64000, 128) and (1, 8192, 256)
+   in bf16 (each faster than its plain version; the f32 FMA route timed at
+   the same shape) and a ragged length in bf16 and f32; the stage-3
    fold-up u (2, 64000, 128) -> (2, 128000, 64) -- in the modes the serving
    paths use (stage 3: f32_storage, bf16, x2; stage 4: hifi, bf16), plus
    ragged lengths, and the two stages' f32 FMA route on true-f32 inputs and
@@ -37,17 +40,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
    hifi 2 with it (printed: the reference's bf16-prior combination), and
    ``decoder_apply(pallas_stage2=True)`` on the hifi-0 path's prior latent
    (<= 5e-2), plus one 1024-frame request that routes stage 1 (256
-   channels) to the unpacked kernel; each path's kernels must have launched.
+   channels) to the unpacked kernel; each path's kernels must have launched,
+   and no f32 FMA body (``*_fma``) on any of them.
 5. timing: B=32 x 1000 frames (bench.py's protocol: warm-up, iterations,
    synchronize) for hifi 2, hifi 0, hifi 0 + WN kernels, the pallas_stage2
-   route and the plain f32 path, and a profiler breakdown of the hifi-2 step
-   by kernel and of the two WN / stage-2 paths.
+   route (weights packed once by ``pack_decoder``) and the plain f32 path,
+   each with its launches per step checked (the WN and stage-2 paths: the
+   tensor-core bodies), and a profiler breakdown of the hifi-2 step by
+   kernel and of the two WN / stage-2 paths.
 6. gate path: the 16 gates of the prior's WN layers under a speaker
    conditioning, x (32, 1000, 384) + g (32, 1, 384) each, through
    ``fused_gate``, against the module graph's ``gated_activation``.
 7. training-kernel A/B at full width (``tools/ab_mrf_train.py``): B = 16,
    the four training shapes, bf16, ``mean(|stage(x)|)``; forward + backward
-   of cuDNN autograd against ``mrf_stage_train``, interleaved.
+   of cuDNN autograd against ``mrf_stage_train`` (forward on the tensor
+   cores, weights packed per call), interleaved.
 8. variants (``tools/exp_mrf_variants.py``): stage 3, x (32, 128000, 64).
 
 Every kernel's record carries its bound: the larger of its operations over
@@ -57,11 +64,12 @@ then count two passes) and its bytes (inputs read once, outputs written once)
 over 3.35 TB/s. No single PyTorch call computes an 18-conv stage, a WN stack,
 a branch backward or the gate, so ``library_ms`` is null throughout.
 ``tflops`` is the record's operations over its kernel time. ``earlier_ms``,
-for the two stages and the variant that moved to the tensor cores, is the time
-measured in this run of the f32 FMA kernel they replaced (today's route for
-true-f32 weights, counted under its own ``*_fma`` name) at the same shape on
-f32 inputs; null for the other kernels. The timed calls pass the weights
-packed once (``pack_mrf_stage``, ``pack_up_mrf_stage``), as ``Vocoder`` does.
+for the four kernels and the variant that moved to the tensor cores, is the
+time measured in this run of the f32 FMA kernel they replaced (today's route
+for true-f32 weights, counted under its own ``*_fma`` name) at the same shape
+on f32 inputs; null for the other kernels. The timed calls pass the weights
+packed once (``pack_mrf_stage``, ``pack_up_mrf_stage``, ``pack_wn_stack``),
+as ``Vocoder`` does.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -176,9 +184,14 @@ def bound(flops: float, tensors) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
 
 
+TENSOR_CORE_KERNELS = ("up_mrf_stage_kernel", "mrf_stage_kernel", "mrf_pair_mma_kernel",
+                       "wn_stack_mma_kernel")
+
+
 def sass_mma_counts(so: str) -> dict:
     """MMA instructions in the built library's SASS (``cuobjdump -sass``), per
-    kernel of the two stages: {demangled-ish name: {"HGMMA": n, "HMMA": n,
+    instantiation of the tensor-core kernels (the two stages, the unpacked
+    stage's pair, the WN stack): {demangled-ish name: {"HGMMA": n, "HMMA": n,
     "FFMA": n}}. ``HGMMA`` is ``wgmma``, ``HMMA`` is ``mma.sync``."""
     import re
     import shutil
@@ -189,7 +202,7 @@ def sass_mma_counts(so: str) -> dict:
     counts, current = {}, None
     for line in proc.stdout:
         if "Function :" in line:
-            m = re.search(r"\d+(up_mrf_stage_kernel|mrf_stage_kernel)((?:ILi\d+E|Li\d+E)+)", line)
+            m = re.search(rf"\d+({'|'.join(TENSOR_CORE_KERNELS)})((?:ILi\d+E|Li\d+E)+)", line)
             current = None
             if m:
                 current = f"{m.group(1)}<{', '.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
@@ -247,7 +260,7 @@ def main() -> int:
         mrf_branch_bwd_plain,
     )
     from smart_vocoder_torch.kernels._build import build
-    from smart_vocoder_torch.kernels.decoder import _stage_branches, decoder_apply
+    from smart_vocoder_torch.kernels.decoder import _stage_branches, decoder_apply, pack_decoder
     from smart_vocoder_torch.kernels.wn_stack import (
         pack_wn_stack,
         wn_chunk,
@@ -275,16 +288,20 @@ def main() -> int:
     t0 = time.time()
     so = build()
     log(f"build: {time.time() - t0:.1f} s -> {os.path.relpath(so, ROOT)}")
-    # every instantiation of the two stage kernels runs its convs on the tensor
-    # cores: wgmma at 64 channels, mma.sync at 32
+    # every bf16 instantiation of the tensor-core kernels runs its convs on the
+    # tensor cores: wgmma from 64 channels (the WN stack's 192 too), mma.sync at 32
     sass = sass_mma_counts(str(so))
     for kernel, ops in sorted(sass.items()):
         log(f"  sass {kernel}: {ops}")
-        wgmma = kernel.split("<")[1].split(",")[-2].strip() == "64"  # <[Cin,] C, mode>
+        params = kernel.split("<")[1].rstrip(">").split(", ")
+        # <[Cin,] C, mode> for the stages, <C> for the pair and the WN stack
+        c = int(params[-2] if kernel.startswith(("mrf_stage", "up_mrf")) else params[0])
+        wgmma = c >= 64
         if ops["HGMMA" if wgmma else "HMMA"] == 0 or ops["HMMA" if wgmma else "HGMMA"] != 0:
             raise RuntimeError(f"{kernel}: not the MMA its channel count takes: {ops}")
-    if len(sass) != 10:
-        raise RuntimeError(f"expected the 6 + 4 instantiations of the stage kernels: {sass}")
+    if len(sass) != 15:
+        raise RuntimeError("expected the 6 + 4 instantiations of the stage kernels, 4 of the "
+                           f"unpacked stage's pair and 1 of the WN stack: {sass}")
 
     hps = load_config(os.path.join(ROOT, "configs", "iitp_base.json"))
     net = init_synthesizer(build_synthesizer(hps, weight_norm=True), SEED)
@@ -442,22 +459,35 @@ def main() -> int:
             xd, br = x.to(dt), stage_branches(stage, dt)
             mode = K.BF16 if dt == torch.bfloat16 else K.F32
             tag = f"mrf_stage_unpacked {shape} {'bf16' if mode == K.BF16 else 'f32'}"
+            name_k = "mrf_stage_unpacked" if mode == K.BF16 else "mrf_stage_unpacked_fma"
+            before = K.LAUNCHES[name_k]
             got = K.mrf_stage_unpacked(xd, br, ks, dil)
+            if K.LAUNCHES[name_k] != before + len(ks) * len(dil):
+                raise RuntimeError(f"{tag}: did not take {name_k}")
+            packed = K.pack_mrf_stage(br, dev) if mode == K.BF16 else None
+            if packed is not None and not torch.equal(
+                    got, K.mrf_stage_unpacked(xd, br, ks, dil, packed=packed)):
+                raise RuntimeError(f"{tag}: weights packed once give other bits")
             want = K.mrf_stage_plain(xd, br, ks, dil, mode)
             exact = K.mrf_stage_plain(xd, br, ks, dil, K.F32)
             rec = record("mrf_stage_unpacked", compare(tag, got, want, exact, mode == K.F32,
                                                        ulp_slack=True))
-            if shape == (2, 64000, 128):
-                rec["ms"] = cuda_ms(lambda: K.mrf_stage_unpacked(xd, br, ks, dil), 3)
-                rec["plain_ms"] = cuda_ms(lambda: K.mrf_stage_plain(xd, br, ks, dil, mode), 3)
-                rec.update(bound(mrf_flops(*shape, ks, len(dil)), [xd, got, *sum(br, ())]))
-                log(f"  {tag}: kernel {rec['ms']:.2f} ms, plain {rec['plain_ms']:.2f} ms, "
-                    f"bound {rec['bound_ms']:.3f} ms  [{card}]")
-            elif shape[2] == 256:
+            if shape[1] != 12345:
+                # the kernel with the weights packed once (as pack_decoder does),
+                # its plain version, and the f32 FMA route it replaces, same shape
+                ms = cuda_ms(lambda: K.mrf_stage_unpacked(xd, br, ks, dil, packed=packed), 5)
+                plain = cuda_ms(lambda: K.mrf_stage_plain(xd, br, ks, dil, mode), 3)
+                x32, br32 = x.float(), stage_branches(stage, torch.float32)
+                earlier = cuda_ms(lambda: K.mrf_stage_unpacked(x32, br32, ks, dil), 1)
                 bnd = bound(mrf_flops(*shape, ks, len(dil)), [xd, got, *sum(br, ())])
-                log(f"  {tag}: kernel {cuda_ms(lambda: K.mrf_stage_unpacked(xd, br, ks, dil), 3):.2f}"
-                    f" ms, plain {cuda_ms(lambda: K.mrf_stage_plain(xd, br, ks, dil, mode), 3):.2f}"
-                    f" ms, bound {bnd['bound_ms']:.3f} ms  [{card}]")
+                log(f"  {tag}: kernel {ms:.3f} ms ({bnd['flops'] / ms / 1e9:.1f} TFLOP/s), "
+                    f"plain {plain:.2f} ms, bound {bnd['bound_ms']:.3f} ms, f32 FMA route "
+                    f"{earlier:.2f} ms  [{card}]")
+                if not ms < plain:
+                    raise RuntimeError(f"{tag}: the kernel is not faster than its plain version")
+                if shape == (2, 64000, 128):
+                    rec.update(ms=ms, plain_ms=plain, earlier_ms=earlier, **bnd)
+                del x32, br32
         del x, xd, got, want, exact
     up_w, up_b = dec["ups.2.weight"], dec["ups.2.bias"]
     for tu in (64000, 4321):
@@ -497,9 +527,16 @@ def main() -> int:
         xb = x.bfloat16()
         packed = pack_wn_stack(enc_layers, hidden, torch.bfloat16, lpc, dev)
         carry, skip = xb, torch.zeros_like(xb)
+        before = K.LAUNCHES["wn_stack"]
         for n, chunk in enumerate(chunks):
             final = n == len(chunks) - 1
             got = wn_chunk(carry, mask, chunk, hidden, skip, final, packed[n])
+            if K.LAUNCHES["wn_stack"] != before + n + 1:
+                raise RuntimeError("wn_chunk: bf16 inputs did not take the tensor-core kernel")
+            if not all(torch.equal(a, b_) for a, b_ in
+                       zip(got, wn_chunk(carry, mask, chunk, hidden, skip, final))):
+                raise RuntimeError("wn_chunk: weights packed once give other bits")
+            before += 1
             want = wn_chunk_plain(carry, mask, chunk, hidden, skip, final)
             exact = wn_chunk_plain(carry.float(), mask,
                                    [tuple(a.bfloat16().float() for a in lay) for lay in chunk],
@@ -508,24 +545,30 @@ def main() -> int:
             for part, g, w, e in zip(("state", "skip sum"), got, want, exact):
                 record("wn_stack", compare(f"{tag} {part}", g, w, e, False, ulp_slack=True))
             carry, skip = want
+        before = K.LAUNCHES["wn_stack_fma"]
         got = wn_stack(x, mask, enc_layers, hidden, lpc)
+        if K.LAUNCHES["wn_stack_fma"] != before + len(chunks):
+            raise RuntimeError("wn_stack: f32 inputs did not take the FMA kernel")
         want = wn_stack_plain(x, mask, enc_layers, hidden, lpc)
         record("wn_stack", compare(f"wn_stack {tuple(x.shape)} x{len(enc_layers)} layers f32",
                                    got, want, want, True))
         if b == 32:
+            times = {}
             for xd, pk in ((xb, packed), (x, pack_wn_stack(enc_layers, hidden, torch.float32,
                                                            lpc, dev))):
-                ms = cuda_ms(lambda: wn_stack(xd, mask, enc_layers, hidden, lpc, pk), 3)
+                ms = cuda_ms(lambda: wn_stack(xd, mask, enc_layers, hidden, lpc, pk), 5)
                 plain = cuda_ms(lambda: wn_stack_plain(xd, mask, enc_layers, hidden, lpc), 3)
-                bf = xd.dtype == torch.bfloat16
+                times[xd.dtype] = ms, plain
                 log(f"  wn_stack {tuple(x.shape)} x{len(enc_layers)} layers "
-                    f"{'bf16' if bf else 'f32'}: kernel {ms:.2f} ms, plain {plain:.2f} ms  [{card}]")
-                if bf:
-                    n_l = len(enc_layers)  # k=5 conv H -> 2H, then 1x1 to 2H (H in the last)
-                    flops = 2.0 * b * t * hidden * hidden * (12 * n_l - 1)
-                    records["wn_stack"].update(
-                        ms=ms, plain_ms=plain,
-                        **bound(flops, [xd, mask, xd, *sum(enc_layers, ())]))
+                    f"{'bf16' if xd.dtype == torch.bfloat16 else 'f32 (FMA route)'}: kernel "
+                    f"{ms:.3f} ms, plain {plain:.2f} ms  [{card}]")
+            ms, plain = times[torch.bfloat16]
+            if not ms < plain:
+                raise RuntimeError("wn_stack bf16: the kernel is not faster than its plain version")
+            n_l = len(enc_layers)  # k=5 conv H -> 2H, then 1x1 to 2H (H in the last)
+            flops = 2.0 * b * t * hidden * hidden * (12 * n_l - 1)
+            records["wn_stack"].update(ms=ms, plain_ms=plain, earlier_ms=times[torch.float32][0],
+                                       **bound(flops, [xb, mask, xb, *sum(enc_layers, ())]))
         del x, xb, carry, skip, got, want, exact
 
     # the Triton gate: f32 within 1e-6 (exp and the divisions round differently
@@ -636,14 +679,18 @@ def main() -> int:
     def vocoder(voc):
         return lambda m, e: voc.mel_to_wav(m, eps=e)
 
+    stage2_packed = pack_decoder(vocoder_hifi0.dec_params, vocoder_hifi0.dec_cfg,
+                                 torch.bfloat16, 0, pallas_stage2=True)
+
     def stage2_step(mel_t, lens_t, eps_t):
         """The pallas_stage2 route as scripts/exp_stage2_e2e.py drives it:
-        the hifi-0 path's prior latent, then decoder_apply(pallas_stage2=True)."""
+        the hifi-0 path's prior latent, then decoder_apply(pallas_stage2=True)
+        with the weights packed once, as ``Vocoder`` packs its decoder's."""
         with torch.inference_mode():
             z, _, _ = vocoder_hifi0.net_prior.prior_latent(mel_t, lens_t, eps_t, 0.667)
             return decoder_apply(vocoder_hifi0.dec_params, z.transpose(1, 2),
                                  vocoder_hifi0.dec_cfg, dtype=torch.bfloat16, hifi_tail=0,
-                                 pallas_stage2=True)
+                                 pallas_stage2=True, packed=stage2_packed)
 
     def stage2(m, e):
         """``stage2_step`` on requests padded to the bucket as mel_to_wav pads them."""
@@ -670,14 +717,17 @@ def main() -> int:
 
     def serve(label, run, kernels, bound, ref=reference):
         """Drive one path with the counts reset just before it; check its
-        waveforms, that its kernels launched, and its mel-L1."""
+        waveforms, that its kernels launched (their tensor-core bodies: no
+        ``*_fma`` launch), and its mel-L1."""
         K.reset_launch_counts()
         served = run()
         torch.cuda.synchronize()
         counts = dict(K.LAUNCHES)
         log(f"slice {label}: launches {counts}")
-        if not all(counts[k] > 0 for k in kernels):
-            raise RuntimeError(f"{label}: a kernel of the path was not launched: {counts}")
+        if not all(counts[k] > 0 for k in kernels) or any(
+                v for k, v in counts.items() if k.endswith("_fma")):
+            raise RuntimeError(f"{label}: a kernel of the path was not launched, or an FMA "
+                               f"body was: {counts}")
         for w, r in zip(served, ref):
             if w.shape != r.shape or not np.isfinite(w).all() or np.abs(w).max() > 1.0:
                 raise RuntimeError(f"{label}: bad waveform {w.shape} vs {r.shape}")
@@ -735,6 +785,11 @@ def main() -> int:
         if label in ("hifi2", "hifi0") and per_step != {"mrf_stage": 1, "up_mrf_stage": 1}:
             raise RuntimeError(f"{label}: a step is one launch of each stage kernel, got "
                                f"{per_step}")
+        # the two opt-in paths run their redesigned kernels, and no FMA body
+        want = {"hifi0_wn": {"wn_stack": 12, "mrf_stage": 1, "up_mrf_stage": 1},
+                "pallas_stage2": {"mrf_stage_unpacked": per_stage, "up_mrf_stage": 2}}
+        if label in want and per_step != want[label]:
+            raise RuntimeError(f"{label}: launches per step {per_step}, expected {want[label]}")
         t0 = time.perf_counter()
         for _ in range(iters):
             fn(mel32, lens32, eps32)
@@ -747,8 +802,8 @@ def main() -> int:
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 
     for label, fn, rows in (("hifi 2", step(vocoder_hifi2), 20),
-                            ("hifi 0 + WN kernels", step(vocoder_wn0), 8),
-                            ("pallas_stage2", stage2_step, 8)):
+                            ("hifi 0 + WN kernels", step(vocoder_wn0), 12),
+                            ("pallas_stage2", stage2_step, 12)):
         profile_step(label, lambda: fn(mel32, lens32, eps32), card, rows)
 
     # 6. gate path: the gates of the prior's 16 WN layers under a speaker
@@ -826,7 +881,7 @@ def main() -> int:
          "replaces": "smart_vocoder_tpu/kernels/mrf.py:560",
          "launches": launches["up_mrf_stage"], **records["up_mrf_stage"]},
         {"name": "mrf_stage_unpacked", "route": "cuda",
-         "source": "smart_vocoder_torch/kernels/csrc/mrf_stage_fma.cu",
+         "source": "smart_vocoder_torch/kernels/csrc/mrf_pair.cu",
          "replaces": "smart_vocoder_tpu/kernels/mrf.py:129",
          "launches": launches_s2["mrf_stage_unpacked"], **records["mrf_stage_unpacked"]},
         {"name": "wn_stack", "route": "cuda",

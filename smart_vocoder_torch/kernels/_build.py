@@ -37,12 +37,16 @@ _SIGNATURES = {
     "svt_up_mrf_stage": [_P] * 6 + [_I] * 20 + [_P],
     # u, out, wup, bup, w, bias, wpost (all f32), then as svt_up_mrf_stage
     "svt_up_mrf_stage_fma": [_P] * 7 + [_I] * 20 + [_P],
-    # x, out, s0, s1, acc, w, bias, B, T, C, tile, nb, k0..k2, np, d0..d2, is_bf16,
-    # n_launched (out), stream
-    "svt_mrf_stage_unpacked": [_P] * 7 + [_I] * 13 + [ctypes.POINTER(_I), _P],
-    # x, mask, x_out, skip, w_in, b_in, w_rs, b_rs, B, T, H, tile, n_layers,
-    # final_mask, is_bf16, stream
-    "svt_wn_stack": [_P] * 8 + [_I] * 7 + [_P],
+    # x, out, s0, s1, acc, w (packed bf16 tiles), bias, B, T, C, tile, nb, k0..k2, np,
+    # d0..d2, n_launched (out), stream
+    "svt_mrf_stage_unpacked": [_P] * 7 + [_I] * 12 + [ctypes.POINTER(_I), _P],
+    # the same, all f32, w as flat [branch][w1 of every pair, w2 of every pair]
+    "svt_mrf_stage_unpacked_fma": [_P] * 7 + [_I] * 12 + [ctypes.POINTER(_I), _P],
+    # x, mask, x_out, skip, w (packed bf16 tiles), b_in, b_rs, B, T, H, tile, n_layers,
+    # final_mask, last_skip_only, stream
+    "svt_wn_stack": [_P] * 7 + [_I] * 7 + [_P],
+    # the same, all f32, w as [layer][w_in, w_rs], without last_skip_only
+    "svt_wn_stack_fma": [_P] * 7 + [_I] * 6 + [_P],
     # x, g, dx, xs, hs, dtmp, w1, b1, w2, b2, w1f, w2f, dw1, db1, dw2, db2, B, T, C,
     # tile, k, np, d0..d2, is_bf16, n_launched (out), stream
     "svt_mrf_branch_bwd": [_P] * 16 + [_I] * 10 + [ctypes.POINTER(_I), _P],
@@ -65,9 +69,10 @@ def pick_tile(smem_bytes) -> int:
 LAUNCHES: dict[str, int] = {"mrf_stage": 0, "up_mrf_stage": 0, "mrf_stage_unpacked": 0,
                             "wn_stack": 0, "fused_gate": 0, "mrf_branch_bwd": 0,
                             "mrf_stage_variant": 0,
-                            # the f32 FMA bodies of the three above (true-f32 weights)
+                            # the f32 FMA bodies of five of the above (true-f32 weights)
                             "mrf_stage_fma": 0, "up_mrf_stage_fma": 0,
-                            "mrf_stage_variant_fma": 0}
+                            "mrf_stage_variant_fma": 0, "mrf_stage_unpacked_fma": 0,
+                            "wn_stack_fma": 0}
 
 
 def reset_launch_counts() -> None:

@@ -1,6 +1,7 @@
-// Helpers shared by the MRF kernels (mrf_stage.cu, mrf_stage_fma.cu,
-// mrf_train.cu): the rounding points of the precision modes, typed loads and
-// stores, and the tiled FMA convolution loop over a shared-memory operand.
+// Helpers shared by the MRF kernels (mrf_stage.cu, mrf_pair.cu,
+// mrf_stage_fma.cu, mrf_train.cu, wn_stack.cu): the rounding points of the
+// precision modes, typed loads and stores, the tiled FMA convolution loop over
+// a shared-memory operand, and the unpacked stage's chaining of pairs.
 // Included by each source, so everything here has internal linkage.
 #pragma once
 
@@ -128,6 +129,104 @@ __device__ __forceinline__ void conv_rows(const St* __restrict__ src,
       }
     }
   }
+}
+
+// The unpacked MRF stage (fused_mrf_stage) runs one residual pair of one
+// branch per launch (mrf_pair.cu on the tensor cores, mrf_stage_fma.cu on
+// f32). What a pair does with its output: write the next branch state, set or
+// add the f32 branch sum in branch order, as the TPU kernel's accumulator
+// does, or, for the stage's last pair, write (sum + x) / n_branches.
+enum PairOp { kState = 0, kAccSet = 1, kAccAdd = 2, kOut = 3 };
+
+// V consecutive values at p (one, or two as one vector access).
+template <int V>
+__device__ __forceinline__ void load_vals(const float* p, float (&v)[V]) {
+  if constexpr (V == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vals(float* p, const float (&v)[V]) {
+  if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vals(__nv_bfloat16* p, const float (&v)[V]) {
+  if constexpr (V == 2) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
+  } else {
+    *p = __float2bfloat16_rn(v[0]);
+  }
+}
+
+// The pair's new state n (V consecutive values at idx of the (B, T, C)
+// tensors) as the PairOp op says.
+template <int V, typename St>
+__device__ __forceinline__ void pair_output(int op, int nb, St* __restrict__ xout,
+                                            float* __restrict__ acc, size_t idx, float (&n)[V]) {
+  float a[V];
+  switch (op) {
+    case kState:
+      store_vals(xout + idx, n);
+      break;
+    case kAccSet:
+      store_vals(acc + idx, n);
+      break;
+    case kAccAdd:
+      load_vals(acc + idx, a);
+#pragma unroll
+      for (int e = 0; e < V; ++e) a[e] += n[e];
+      store_vals(acc + idx, a);
+      break;
+    default:
+      if (nb > 1) {
+        load_vals(acc + idx, a);
+#pragma unroll
+        for (int e = 0; e < V; ++e) n[e] = a[e] + n[e];
+      }
+#pragma unroll
+      for (int e = 0; e < V; ++e) n[e] = n[e] / nb;
+      store_vals(xout + idx, n);
+  }
+}
+
+// A stage as nb * np launches of a one-pair kernel, in the TPU kernel's
+// order: pair j of a branch reads the branch state (x for j = 0) and writes
+// the next (s0 and s1 in turn), or, for the branch's last pair, sets or adds
+// the f32 sum or writes the stage output. launch(cur, dst, op, k, d, j, woff,
+// b1, b2) launches pair j of a branch of kernel size k, woff counting the
+// weight elements of the branches before it, and returns its error; *n_launched
+// counts the launches that went.
+template <typename T, typename Launch>
+int chain_pairs(const T* x, T* out, T* s0, T* s1, const float* bias, int C, const Branches& br,
+                int* n_launched, Launch launch) {
+  size_t woff = 0, boff = 0;
+  for (int i = 0; i < br.nb; ++i) {
+    const int k = br.k[i];
+    const T* cur = x;
+    for (int j = 0; j < br.np; ++j) {
+      const bool last = j == br.np - 1;
+      const int op = !last ? kState : i == br.nb - 1 ? kOut : i == 0 ? kAccSet : kAccAdd;
+      T* dst = !last ? (j % 2 == 0 ? s0 : s1) : out;
+      const cudaError_t err = launch(cur, dst, op, k, br.d[j], j, woff, bias + boff + j * C,
+                                     bias + boff + (br.np + j) * C);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      ++*n_launched;
+      cur = dst;
+    }
+    woff += 2 * static_cast<size_t>(br.np) * k * C * C;
+    boff += 2 * br.np * C;
+  }
+  return 0;
 }
 
 }  // namespace

@@ -1,7 +1,7 @@
-// Tensor-core building blocks of the whole-stage MRF kernels (mrf_stage.cu):
-// warp-level bf16 MMA with f32 accumulation, `ldmatrix` operand loads, the
-// hi/lo split of an f32 operand, and a ring of weight tiles streamed through
-// shared memory with `cp.async`.
+// Tensor-core building blocks of the MRF kernels (mrf_stage.cu, mrf_pair.cu)
+// and the WN stack (wn_stack.cu): warp-level bf16 MMA with f32 accumulation,
+// `ldmatrix` operand loads, the hi/lo split of an f32 operand, and a ring of
+// weight tiles streamed through shared memory with `cp.async`.
 //
 // A convolution is k shifted GEMMs over one shared-memory operand: for tap t,
 // D[rows, Cout] += A[rows + t*dil - half, Cin] * W_t[Cin, Cout]. A is a
@@ -16,7 +16,10 @@
 //   multiple of 8); B, the weight tile, is read by the tensor cores through a
 //   shared-memory descriptor, once per warpgroup and not once per warp. A
 //   warpgroup owns a 64-row tile; its four warps hold 16 rows each, in the
-//   accumulator layout of the warp-level MMA.
+//   accumulator layout of the warp-level MMA. The same body takes N as NS
+//   slices of 64 columns that share each A fragment (the unpacked stage at
+//   C = 128 and 256, kernels of mrf_pair.cu; the WN stack, wn_stack.cu, whose
+//   two slices are a gate's tanh and sigmoid columns).
 // - C = 32: `mma.sync.aligned.m16n8k16`, both operands through `ldmatrix`; a
 //   warp owns a 16-row tile.
 // A block is 16 warps (four warpgroups), which cover the 256 rows a GEMM may
@@ -139,13 +142,15 @@ __device__ __forceinline__ void put_lrelu(__nv_bfloat16* op, int plane, int idx,
 
 // The weights of one launch as a sequence of tiles in the order the GEMMs
 // consume them (packed so by kernels/mrf.py): n_up tiles of 64 x C (the
-// upsample's taps, in chunks of 64 input channels), then tiles of C x C (one
-// per tap of each MRF conv). At C = 32 a tile is row-major [K][C] and lands in
-// its ring slot with the rows padded by kPad elements, which keeps the 8 row
-// addresses of an `ldmatrix` on distinct banks. At C = 64 a tile is packed as
-// `wgmma` reads a K-major B operand without swizzle, 8 x 8 core matrices of
-// 128 contiguous bytes [C / 8][K / 8][8 columns][8 rows], and lands as one
-// flat copy at the start of its slot (the slots keep the padded size).
+// upsample's taps, in chunks of 64 input channels; in the unpacked stage and
+// the WN stack every tile: 64 input channels by the C columns of one pass),
+// then tiles of C x C (one per tap of each MRF conv). C is the tile's width.
+// A row-major tile (`mma.sync`, C = 32) is [K][C] and lands in its ring slot
+// with the rows padded by kPad elements, which keeps the 8 row addresses of an
+// `ldmatrix` on distinct banks. A FLAT tile (`wgmma`) is packed as `wgmma`
+// reads a K-major B operand without swizzle, 8 x 8 core matrices of 128
+// contiguous bytes [C / 8][K / 8][8 columns][8 rows], and lands as one flat
+// copy at the start of its slot (the slots keep the padded size).
 struct WeightRing {
   const __nv_bfloat16* g;  // packed tiles in global memory (they live in L2)
   uint32_t s;              // shared address of slot 0
@@ -153,9 +158,12 @@ struct WeightRing {
   int next;                // the tile the next GEMM step consumes
 };
 
-constexpr int kWgmmaC = 64;  // the channel count whose GEMMs run on `wgmma`
+constexpr int kWgmmaC = 64;  // the channel count whose stage GEMMs run on `wgmma`
 
-template <int C, int KT>
+// THREADS: the block's threads, every one of which calls the ring; STAGES:
+// its slots.
+template <int C, int KT, bool FLAT = C == kWgmmaC, int THREADS = kMmaThreads,
+          int STAGES = kStages>
 __device__ __forceinline__ void ring_load(const WeightRing& r, int q) {
   constexpr int SW = C + kPad;
   constexpr int CPR = C / 8;  // 16-byte chunks per row
@@ -165,9 +173,9 @@ __device__ __forceinline__ void ring_load(const WeightRing& r, int q) {
     const size_t off = up ? static_cast<size_t>(q) * 64 * C
                           : static_cast<size_t>(r.n_up) * 64 * C +
                                 static_cast<size_t>(q - r.n_up) * C * C;
-    const uint32_t dst = r.s + (q % kStages) * (KT * SW * 2);
-    for (int i = threadIdx.x; i < rows * CPR; i += kMmaThreads) {
-      if constexpr (C == kWgmmaC) {
+    const uint32_t dst = r.s + (q % STAGES) * (KT * SW * 2);
+    for (int i = threadIdx.x; i < rows * CPR; i += THREADS) {
+      if constexpr (FLAT) {
         cp_async16(dst + i * 16, r.g + off + i * 8);
       } else {
         const int row = i / CPR, ch = i % CPR;
@@ -178,27 +186,29 @@ __device__ __forceinline__ void ring_load(const WeightRing& r, int q) {
   cp_async_commit();  // every thread commits one group per tile, empty or not
 }
 
-// Starts the ring: tiles 0 .. kStages - 2 in flight.
-template <int C, int KT>
+// Starts the ring: tiles 0 .. STAGES - 2 in flight.
+template <int C, int KT, bool FLAT = C == kWgmmaC, int THREADS = kMmaThreads,
+          int STAGES = kStages>
 __device__ __forceinline__ void ring_start(WeightRing& r) {
   r.next = 0;
-  for (int q = 0; q < kStages - 1; ++q) ring_load<C, KT>(r, q);
+  for (int q = 0; q < STAGES - 1; ++q) ring_load<C, KT, FLAT, THREADS, STAGES>(r, q);
 }
 
 // The shared address of the next tile, landed and visible to the block. The
 // barrier also orders every shared-memory write before it (the previous
 // GEMM's epilogue) before every read after it, and shows that all warps are
 // done with the tile before, whose slot the new load takes.
-template <int C, int KT>
+template <int C, int KT, bool FLAT = C == kWgmmaC, int THREADS = kMmaThreads,
+          int STAGES = kStages>
 __device__ __forceinline__ uint32_t ring_next(WeightRing& r) {
-  cp_async_wait<kStages - 2>();
-  if constexpr (C == kWgmmaC) {
+  cp_async_wait<STAGES - 2>();
+  if constexpr (FLAT) {
     // the tensor cores read the tile through the async proxy
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
   __syncthreads();
-  ring_load<C, KT>(r, r.next + kStages - 1);
-  const uint32_t slot = r.s + (r.next % kStages) * (KT * (C + kPad) * 2);
+  ring_load<C, KT, FLAT, THREADS, STAGES>(r, r.next + STAGES - 1);
+  const uint32_t slot = r.s + (r.next % STAGES) * (KT * (C + kPad) * 2);
   ++r.next;
   return slot;
 }
@@ -328,25 +338,34 @@ __device__ __forceinline__ void wgmma_k16(float (&d)[8][4], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
 }
 
-// The `wgmma` body (C = 64, tiles of 64 x 64): warpgroup w of the four owns
-// the 64-row tile w (if below ceil(n_rows / 64)), warp i of it the rows
+// The `wgmma` body: N = 64 * NS output columns as NS slices of 64 (one
+// m64n64k16 accumulator each), over ring tiles of 64 rows by RTN columns (the
+// first 64 * NS of which the GEMM reads). Warpgroup w of the four owns the
+// 64-row tile w (if below ceil(n_rows / 64)), warp i of it the rows
 // 16 i .. 16 i + 15. Per tap the warp loads its A fragments (KB k16 blocks at
 // a time: all four, or two where the lo plane doubles them), issues their
-// wgmmas for both planes as one group and waits for it: the A registers and
-// the ring slot are free again when the block meets at the next tap's
-// barrier, and the other warpgroups' wgmmas run meanwhile.
-template <int AS, bool HILO, typename Step, typename Epi>
+// wgmmas for both planes and every slice as one group and waits for it: the
+// A registers and the ring slot are free again when the block meets at the
+// next tap's barrier, and the other warpgroups' wgmmas run meanwhile. An A
+// fragment feeds all NS slices, so a wider N reads A once for more MMAs, at
+// 32 accumulator registers a slice. Calls epi(row, col, v0, v1) for NS = 1,
+// else epi(row, col, v) with v[s] the values of columns col, col + 1 of slice
+// s (col < 64), so that one call sees column c of every slice. THREADS / 128
+// warpgroups cover THREADS / 2 rows; STAGES is the ring's.
+template <int AS, bool HILO, int NS = 1, int RTN = 64 * NS, int THREADS = kMmaThreads,
+          int STAGES = kStages, typename Step, typename Epi>
 __device__ __forceinline__ void gemm_rows_wgmma(WeightRing& ring, uint32_t a_hi,
                                                 uint32_t a_lo_bytes, int a_row0, int n_rows,
                                                 int n_steps, Step step,
                                                 const float* __restrict__ bias, Epi epi) {
-  constexpr int C = kWgmmaC, NT = C / 8, KS = 64 / 16;
+  constexpr int NT = 64 / 8, KS = 64 / 16;
   constexpr int KB = HILO ? 2 : 4;
-  constexpr int kGroups = kMmaWarps / 4;
+  constexpr int kGroups = THREADS / 128;
+  static_assert(RTN >= 64 * NS, "a ring tile holds every slice of the pass");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int group = warp >> 2, w4 = warp & 3;
   const int n_mt = (n_rows + 63) >> 6;
-  float acc[kMT][NT][4];
+  float acc[kMT][NS][NT][4];
   bool act[kMT];
   int arow[kMT];
 #pragma unroll
@@ -355,16 +374,21 @@ __device__ __forceinline__ void gemm_rows_wgmma(WeightRing& ring, uint32_t a_hi,
     act[mi] = mt < n_mt;
     arow[mi] = a_row0 + min(mt * 64 + w4 * 16 + (lane & 15), n_rows - 1);
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+    for (int s = 0; s < NS; ++s) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.f;
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][s][nt][e] = 0.f;
+      }
     }
   }
   const uint32_t a_lane = a_hi + (lane >> 4) * 16;
   for (int i = 0; i < n_steps; ++i) {
     // B: the two core matrices of a k16 block 128 bytes apart, 8-column groups
-    // 64 / 8 * 128 bytes apart; a k16 block further is 256 bytes further
-    const uint64_t b_desc = smem_desc(ring_next<C, 64>(ring), 128, 1024);
+    // 64 / 8 * 128 bytes apart; a k16 block further is 256 bytes further, a
+    // slice of 64 columns 8 KB further (the descriptor counts 16 bytes)
+    const uint64_t b_desc =
+        smem_desc(ring_next<RTN, 64, true, THREADS, STAGES>(ring), 128, 1024);
     int shift, col;
     step(i, shift, col);
     uint32_t a_addr[kMT];
@@ -388,8 +412,12 @@ __device__ __forceinline__ void gemm_rows_wgmma(WeightRing& ring, uint32_t a_hi,
         if (!act[mi]) continue;
 #pragma unroll
         for (int kk = 0; kk < KB; ++kk) {
-          wgmma_k16(acc[mi], a[mi][kk], b_desc + (k0 + kk) * 16);
-          if constexpr (HILO) wgmma_k16(acc[mi], al[mi][kk], b_desc + (k0 + kk) * 16);
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            const uint64_t b = b_desc + s * 512 + (k0 + kk) * 16;
+            wgmma_k16(acc[mi][s], a[mi][kk], b);
+            if constexpr (HILO) wgmma_k16(acc[mi][s], al[mi][kk], b);
+          }
         }
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -400,17 +428,22 @@ __device__ __forceinline__ void gemm_rows_wgmma(WeightRing& ring, uint32_t a_hi,
 #pragma unroll
   for (int mi = 0; mi < kMT; ++mi) {
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+    for (int s = 0; s < NS; ++s) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(acc[mi][nt][e])::"memory");
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(acc[mi][s][nt][e])::"memory");
+      }
     }
   }
   // accumulator fragment: lane holds rows g, g + 8 at columns 2*tig, 2*tig + 1
   const int g = lane >> 2, tig = lane & 3;
-  float2 b2[NT];
+  float2 b2[NT];  // one slice: the biases in registers; more: read where used
+  if constexpr (NS == 1) {
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    b2[nt] = __ldg(reinterpret_cast<const float2*>(bias + nt * 8 + tig * 2));
+    for (int nt = 0; nt < NT; ++nt) {
+      b2[nt] = __ldg(reinterpret_cast<const float2*>(bias + nt * 8 + tig * 2));
+    }
   }
 #pragma unroll
   for (int mi = 0; mi < kMT; ++mi) {
@@ -421,8 +454,19 @@ __device__ __forceinline__ void gemm_rows_wgmma(WeightRing& ring, uint32_t a_hi,
       if (r >= n_rows) continue;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        epi(r, nt * 8 + tig * 2, acc[mi][nt][2 * half] + b2[nt].x,
-            acc[mi][nt][2 * half + 1] + b2[nt].y);
+        const int c = nt * 8 + tig * 2;
+        float2 v[NS];
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+          const float2 bb =
+              NS == 1 ? b2[nt] : __ldg(reinterpret_cast<const float2*>(bias + s * 64 + c));
+          v[s] = make_float2(acc[mi][s][nt][2 * half] + bb.x, acc[mi][s][nt][2 * half + 1] + bb.y);
+        }
+        if constexpr (NS == 1) {
+          epi(r, c, v[0].x, v[0].y);
+        } else {
+          epi(r, c, v);
+        }
       }
     }
   }

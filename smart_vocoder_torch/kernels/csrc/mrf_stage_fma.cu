@@ -1,15 +1,15 @@
 // Fused HiFi-GAN MRF decoder stages as f32 FMA loops on the CUDA cores
 // (sm_90a, plain C interface): the whole-stage kernels for true-f32 weights,
-// and the unpacked stage.
+// and the unpacked stage for an f32 x.
 //
 // svt_mrf_stage_fma and svt_up_mrf_stage_fma compute the functions of
 // svt_mrf_stage and svt_up_mrf_stage (mrf_stage.cu, which runs them on the
 // tensor cores and describes them) where the activations and the weights are
 // true f32 values: a product of bf16 pairs does not compute an f32 x f32
 // convolution, so kernels/mrf.py routes that case, and no other, here.
-// svt_mrf_stage_unpacked replaces smart_vocoder_tpu/kernels/mrf.py:
-// fused_mrf_stage (the stage in x.dtype, at C = 128 and 256 too; its design
-// is described at mrf_pair_kernel below).
+// svt_mrf_stage_unpacked_fma is the same for the unpacked stage
+// (smart_vocoder_tpu/kernels/mrf.py:fused_mrf_stage) on an f32 x: the bf16
+// form runs on the tensor cores (mrf_pair.cu: svt_mrf_stage_unpacked).
 //
 // Whole-stage kernels: one block per (time tile, batch row). The block keeps
 // its tile plus a halo of R rows on each side in shared memory as f32, with
@@ -240,56 +240,49 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// One residual pair of one branch of the unpacked stage (fused_mrf_stage),
-// x_new = x + c2(lrelu(c1_d(lrelu(x)))), with each conv output rounded and
-// zeroed outside [0, T) as the TPU kernel does (mrf.py:60-86).
+// One residual pair of one branch of the unpacked stage (fused_mrf_stage) in
+// F32 mode, x_new = x + c2(lrelu(c1_d(lrelu(x)))), with each conv output
+// zeroed outside [0, T) as the TPU kernel does (mrf.py:60-86). A bf16 x runs
+// on the tensor cores instead (mrf_pair.cu, which describes the per-pair
+// design); this is its form for true-f32 weights.
 //
 // Why per pair: at C = 256 the whole-stage design above (three haloed
-// buffers of tile + 2 * 60 rows) does not fit in 227 KB even in bf16 at a
-// 32-row tile, and at any tile that fits the 60-row halo would multiply the
-// work. One pair needs a halo of only h*d + 2h rows (at most 30 for k = 11,
-// d = 5), so a block keeps two buffers: the operand lrelu(x) over
-// tile + 2(h*d + h) rows and the operand of conv2 over tile + 2h rows, in the
-// mode's own storage type St (bf16 in BF16 mode, where every stored value is
-// a bf16 value; f32 in F32 mode). The residual x is read from global memory
-// at the output row. A stage is n_branches * n_pairs launches; the branch
-// states go through global memory (bf16 at B=32 x 1000 frames: ~0.5 GB per
-// pass against the ~8.5 TFLOP of stage 2, so the launches stay bound by the
-// FMA loop), and the last pair of each branch adds its output into an f32
-// sum in branch order, as the TPU kernel's accumulator does, or writes
-// (sum + x) / n_branches for the last branch.
-enum PairOp { kState = 0, kAccSet = 1, kAccAdd = 2, kOut = 3 };
-
-template <int C, typename St>
+// buffers of tile + 2 * 60 rows) does not fit in 227 KB at any tile, and at
+// a tile that fits the 60-row halo would multiply the work. One pair needs a
+// halo of only h*d + 2h rows (at most 30 for k = 11, d = 5), so a block keeps
+// two f32 buffers: the operand lrelu(x) over tile + 2(h*d + h) rows and the
+// operand of conv2 over tile + 2h rows. The residual x is read from global
+// memory at the output row. A stage is n_branches * n_pairs launches; the
+// branch states go through global memory, and the last pair of each branch
+// adds its output into an f32 sum in branch order (mrf_common.cuh: PairOp,
+// chain_pairs).
+template <int C>
 __global__ void __launch_bounds__(kThreads)
-    mrf_pair_kernel(const void* __restrict__ xin, void* __restrict__ xout,
+    mrf_pair_kernel(const float* __restrict__ xin, float* __restrict__ xout,
                     float* __restrict__ acc, const float* __restrict__ w1,
                     const float* __restrict__ b1, const float* __restrict__ w2,
                     const float* __restrict__ b2, int T, int tile, int k, int d, int op,
                     int nb) {
   constexpr int S = C + 1;
-  constexpr bool kBf = std::is_same<St, __nv_bfloat16>::value;
-  constexpr int mode = kBf ? kBF16 : 2;  // BF16 or F32
+  constexpr int mode = kF32;
   extern __shared__ __align__(16) unsigned char pair_smem[];
   const int h = (k - 1) / 2;
   const int HA = h * d + h;  // operand rows beyond the tile on each side
-  St* opA = reinterpret_cast<St*>(pair_smem);  // rows [0, tile + 2*HA)
-  St* opB = opA + (tile + 2 * HA) * S;         // rows [h*d, tile + 2*HA - h*d)
+  float* opA = reinterpret_cast<float*>(pair_smem);  // rows [0, tile + 2*HA)
+  float* opB = opA + (tile + 2 * HA) * S;            // rows [h*d, tile + 2*HA - h*d)
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * tile;
   const int g0 = t0 - HA;  // global row of local row 0
   const size_t base = static_cast<size_t>(b) * T * C;
   for (int i = threadIdx.x; i < (tile + 2 * HA) * C; i += kThreads) {
     const int r = i / C, c = i % C, g = g0 + r;
-    const float v =
-        (g >= 0 && g < T) ? load_act(xin, base + static_cast<size_t>(g) * C + c, kBf) : 0.f;
-    opA[r * S + c] = from_f<St>(operand(v, mode));
+    const float v = (g >= 0 && g < T) ? xin[base + static_cast<size_t>(g) * C + c] : 0.f;
+    opA[r * S + c] = operand(v, mode);
   }
   __syncthreads();
   conv_rows<C>(opA, w1, b1, k, d, h * d, tile + 2 * HA - h * d, [&](int r, int c, float v) {
     const int g = g0 + r;
-    const float xt = (g >= 0 && g < T) ? store(v, mode) : 0.f;
-    opB[(r - h * d) * S + c] = from_f<St>(operand(xt, mode));
+    opB[(r - h * d) * S + c] = operand((g >= 0 && g < T) ? v : 0.f, mode);
   });
   __syncthreads();
   const int rows = min(tile, T - t0);
@@ -297,75 +290,55 @@ __global__ void __launch_bounds__(kThreads)
       opB, w2, b2, k, 1, HA, HA + rows,
       [&](int r, int c, float v) {
         const size_t idx = base + static_cast<size_t>(g0 + r) * C + c;
-        const float nx = store(store(v, mode) + load_act(xin, idx, kBf), mode);
-        switch (op) {
-          case kState:
-            store_out(xout, idx, nx, kBf);
-            break;
-          case kAccSet:
-            acc[idx] = nx;
-            break;
-          case kAccAdd:
-            acc[idx] += nx;
-            break;
-          default:
-            store_out(xout, idx, (nb > 1 ? acc[idx] + nx : nx) / nb, kBf);
-        }
+        float n[1] = {v + xin[idx]};
+        pair_output(op, nb, xout, acc, idx, n);
       },
       h * d);
 }
 
-template <int C, typename St>
-int launch_unpacked(const void* x, void* out, void* s0, void* s1, float* acc, const float* w,
+template <int C>
+int launch_unpacked(const float* x, float* out, float* s0, float* s1, float* acc, const float* w,
                     const float* bias, int B, int T, int tile, const Branches& br,
                     int* n_launched, cudaStream_t s) {
   const dim3 grid((T + tile - 1) / tile, B);
-  size_t woff = 0, boff = 0;
-  for (int i = 0; i < br.nb; ++i) {
-    const int k = br.k[i], h = (k - 1) / 2;
-    const size_t wconv = static_cast<size_t>(k) * C * C;
-    const void* cur = x;
-    for (int j = 0; j < br.np; ++j) {
-      const bool last = j == br.np - 1;
-      const int op = !last ? kState : i == br.nb - 1 ? kOut : i == 0 ? kAccSet : kAccAdd;
-      void* dst = !last ? (j % 2 == 0 ? s0 : s1) : out;
-      const int d = br.d[j];
-      const size_t smem = sizeof(St) * (2 * static_cast<size_t>(tile) + 2 * (h * d + 2 * h)) *
-                          (C + 1);
-      cudaFuncSetAttribute(mrf_pair_kernel<C, St>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-      mrf_pair_kernel<C, St><<<grid, kThreads, smem, s>>>(
-          cur, dst, acc, w + woff + j * wconv, bias + boff + j * C,
-          w + woff + (br.np + j) * wconv, bias + boff + (br.np + j) * C, T, tile, k, d, op,
-          br.nb);
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-      ++*n_launched;
-      cur = dst;
-    }
-    woff += 2 * br.np * wconv;
-    boff += 2 * br.np * C;
-  }
-  return 0;
+  return chain_pairs(
+      x, out, s0, s1, bias, C, br, n_launched,
+      [&](const float* cur, float* dst, int op, int k, int d, int j, size_t woff,
+          const float* b1, const float* b2) {
+        const int h = (k - 1) / 2;
+        const size_t wconv = static_cast<size_t>(k) * C * C;
+        const size_t smem =
+            sizeof(float) * (2 * static_cast<size_t>(tile) + 2 * (h * d + 2 * h)) * (C + 1);
+        cudaFuncSetAttribute(mrf_pair_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+        mrf_pair_kernel<C><<<grid, kThreads, smem, s>>>(cur, dst, acc, w + woff + j * wconv, b1,
+                                                        w + woff + (br.np + j) * wconv, b2, T,
+                                                        tile, k, d, op, br.nb);
+        return cudaGetLastError();
+      });
 }
 
 }  // namespace
 
-extern "C" int svt_mrf_stage_unpacked(const void* x, void* out, void* s0, void* s1, float* acc,
-                                      const float* w, const float* bias, int B, int T, int C,
-                                      int tile, int nb, int k0, int k1, int k2, int np, int d0,
-                                      int d1, int d2, int is_bf16, int* n_launched,
-                                      void* stream) {
+// f32 x, out, s0, s1, acc (B, T, C); w: f32 [branch][w1 of every pair, w2 of
+// every pair][tap][Cin][Cout]; bias: f32 [branch][b1 of every pair, b2 of
+// every pair][C].
+extern "C" int svt_mrf_stage_unpacked_fma(const void* x, void* out, void* s0, void* s1,
+                                          float* acc, const float* w, const float* bias, int B,
+                                          int T, int C, int tile, int nb, int k0, int k1,
+                                          int k2, int np, int d0, int d1, int d2,
+                                          int* n_launched, void* stream) {
   const Branches br{nb, {k0, k1, k2}, np, {d0, d1, d2}};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   *n_launched = 0;  // kernels launched: nb * np when all went
   cudaGetLastError();
-#define SVT_PAIR_CASE(CC)                                                                   \
-  case CC:                                                                                  \
-    return is_bf16 ? launch_unpacked<CC, __nv_bfloat16>(x, out, s0, s1, acc, w, bias, B, T, \
-                                                        tile, br, n_launched, s)            \
-                   : launch_unpacked<CC, float>(x, out, s0, s1, acc, w, bias, B, T, tile,   \
-                                                br, n_launched, s);
+  const auto* xf = static_cast<const float*>(x);
+  auto* of = static_cast<float*>(out);
+  auto* sf0 = static_cast<float*>(s0);
+  auto* sf1 = static_cast<float*>(s1);
+#define SVT_PAIR_CASE(CC) \
+  case CC:                \
+    return launch_unpacked<CC>(xf, of, sf0, sf1, acc, w, bias, B, T, tile, br, n_launched, s);
   switch (C) {
     SVT_PAIR_CASE(32)
     SVT_PAIR_CASE(64)

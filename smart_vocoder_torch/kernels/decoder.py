@@ -125,10 +125,20 @@ def _stage_kernel(cfg: DecoderConfig, stage: int, pallas_stage2: bool) -> Option
     return None
 
 
+def _unpacked_route(cfg: DecoderConfig, stage: int, pallas_stage2: bool) -> bool:
+    """Whether ``pallas_stage2`` runs a stage's MRF on :func:`mrf_stage_unpacked`
+    (given a length that is a multiple of 512): a stage without a kernel of
+    its own whose channels are a multiple of 128."""
+    ch = cfg.upsample_initial_channel // (2 ** (stage + 1))
+    return (pallas_stage2 and ch % 128 == 0
+            and _stage_kernel(cfg, stage, pallas_stage2) is None)
+
+
 class PackedStage(NamedTuple):
     """One stage's weights as :func:`decoder_apply` uses them at every step:
     the stacked branches, and the layout of the stage's tensor-core kernel
-    where it has one and its weights are bf16 values."""
+    (the unpacked stage's under ``pallas_stage2``) where it has one and its
+    weights are bf16 values."""
     branches: List[BranchWeights]
     kernel: Union[PackedMRF, PackedUpMRF, None]
 
@@ -159,6 +169,9 @@ def pack_decoder(params_dec: Mapping[str, torch.Tensor], cfg: DecoderConfig,
                 branches, params_dec["conv_post.weight"] if last else None,
                 device=branches[0][0].device)
         elif kernel == "mrf_stage" and bf16:
+            packed = pack_mrf_stage(branches, branches[0][0].device)
+        elif kernel is None and _unpacked_route(cfg, i, pallas_stage2) and bf16:
+            # the unpacked kernel's weights, for the lengths that take it
             packed = pack_mrf_stage(branches, branches[0][0].device)
         stages.append(PackedStage(branches, packed))
     return stages
@@ -227,9 +240,9 @@ def decoder_apply(params_dec: Mapping[str, torch.Tensor], x: torch.Tensor,
             y = mrf_stage(y.transpose(1, 2).to(dtype), branches, ks, dil,
                           f32_storage=hifi >= 1, x2=hifi >= 3,
                           packed=kernel_weights).transpose(1, 2)
-        elif pallas_stage2 and ch % 128 == 0 and y.shape[2] % 512 == 0:
-            y = mrf_stage_unpacked(y.transpose(1, 2).to(dtype), branches, ks,
-                                   dil).transpose(1, 2)
+        elif _unpacked_route(cfg, i, pallas_stage2) and y.shape[2] % 512 == 0:
+            y = mrf_stage_unpacked(y.transpose(1, 2).to(dtype), branches, ks, dil,
+                                   packed=kernel_weights).transpose(1, 2)
         else:
             y = mrf_stage_reference(y.transpose(1, 2), branches, ks, dil,
                                     mixed_f32=early_f32).transpose(1, 2)

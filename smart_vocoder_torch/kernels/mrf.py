@@ -12,7 +12,7 @@ Three kernels, counterparts of the JAX package's Pallas kernels:
   fused_mrf_stage_packed`` (decoder stage 3);
 - :func:`mrf_stage_unpacked` replaces ``fused_mrf_stage`` (the unpacked
   stage in ``x.dtype``: stage 2, and stage 1 when its length allows, under
-  ``decoder_apply(pallas_stage2=True)``);
+  ``decoder_apply(pallas_stage2=True)``; the forward of ``mrf_stage_train``);
 - :func:`up_mrf_stage` replaces ``fused_up_mrf_stage`` (decoder stage 4, or
   stage 3 under ``pallas_stage2``): lrelu -> ConvTranspose1d upsample -> the
   MRF stage, optionally followed by the decoder tail lrelu(0.01) -> conv_post
@@ -27,10 +27,11 @@ for a CPU tensor it runs the plain PyTorch version beside it
 ``fused_mrf_stage``'s contract, which is the BF16 mode for a bf16 ``x`` and
 the F32 mode for an f32 one, so its plain version is ``mrf_stage_plain``.
 
-What bounds :func:`mrf_stage` and :func:`up_mrf_stage` on the card is
-arithmetic (a stage is 252*C*C FLOP a row against a few hundred bytes), so
-their kernels (``csrc/mrf_stage.cu``) run every conv, and the polyphase
-upsample, on the tensor cores with bf16 operands and f32 accumulation over
+What bounds the three on the card is arithmetic (a stage is 252*C*C FLOP a
+row against a few hundred bytes), so their kernels (``csrc/mrf_stage.cu``,
+and ``csrc/mrf_pair.cu`` for the unpacked stage at C = 32-256, whose GEMMs at
+C >= 128 run as one pass of C columns, :func:`pair_geometry`) run every
+conv, and the polyphase upsample, on the tensor cores with bf16 operands and f32 accumulation over
 bf16 operand buffers in shared memory: ``wgmma.m64n64k16`` at 64 channels (A
 from registers through ``ldmatrix``, the weight tile through a shared-memory
 descriptor), ``mma.sync.m16n8k16`` at 32. The weights are bf16 tiles in the
@@ -45,8 +46,8 @@ haloed rows the block's warps cover (:func:`mrf_stage_tile`,
 which is every serving mode; for true-f32 weights (an f32 ``x``; an f32 ``u``
 without ``hifi``) the wrappers launch the f32 FMA kernels of
 ``csrc/mrf_stage_fma.cu`` instead, since a product of bf16 pairs does not
-compute an f32 x f32 convolution; those launches count as ``mrf_stage_fma``
-and ``up_mrf_stage_fma``.
+compute an f32 x f32 convolution; those launches count as ``mrf_stage_fma``,
+``up_mrf_stage_fma`` and ``mrf_stage_unpacked_fma``.
 
 Precision modes (one int flag of the kernels, mirrored by the plain
 versions, which compute in float32 and round explicitly where the JAX
@@ -348,27 +349,77 @@ def up_mrf_stage_tile(cin: int, c: int, mode: int, halo: int, p_post: int, up_ke
     return pick_tile(smem)
 
 
-WGMMA_CHANNELS = 64  # the channel count whose GEMMs run on ``wgmma``
+WGMMA_CHANNELS = 64  # the channel count whose stage GEMMs run on ``wgmma``
+PAIR_TILES = (240, 128, 64, 32)  # the unpacked stage's candidate time tiles
 
 
-def _tile_layout(tiles: torch.Tensor) -> torch.Tensor:
-    """Weight tiles (n, K, C) [Cin][Cout] in the layout their MMA reads: at
-    C = 32 row-major as they are (``ldmatrix``); at C = 64 as ``wgmma`` reads
-    a K-major B operand without swizzle, 8 x 8 core matrices of 128 contiguous
-    bytes, [C / 8][K / 8][8 columns][8 rows]."""
+class PairGeometry(NamedTuple):
+    """The unpacked stage's block at one channel count (``csrc/mrf_pair.cu:
+    PairGeometry``): threads and ring slots. Its GEMMs are one pass of all C
+    columns; at C = 256 their 128 accumulators a thread need 8 warps, and
+    the ring's 33 KB slots leave room for 3."""
+    threads: int
+    stages: int
+
+
+def pair_geometry(c: int) -> PairGeometry:
+    return PairGeometry(256, 3) if c == 256 else PairGeometry(512, MMA_STAGES)
+
+
+def _tile_layout(tiles: torch.Tensor, wgmma: Optional[bool] = None) -> torch.Tensor:
+    """Weight tiles (n, K, N) [Cin][Cout] in the layout their MMA reads:
+    row-major as they are for ``mma.sync`` (``ldmatrix``); for ``wgmma`` (by
+    default at N = 64) as it reads a K-major B operand without swizzle, 8 x 8
+    core matrices of 128 contiguous bytes, [N / 8][K / 8][8 columns][8 rows]."""
     n, k, c = tiles.shape
-    if c != WGMMA_CHANNELS:
+    if not (c == WGMMA_CHANNELS if wgmma is None else wgmma):
         return tiles
     return tiles.reshape(n, k // 8, 8, c // 8, 8).permute(0, 3, 1, 4, 2)
 
 
+def _conv_tiles(w: torch.Tensor) -> torch.Tensor:
+    """One conv's weights (k, C, C) [tap][Cin][Cout] as the tiles its kernels
+    consume: one (C, C) tile per tap at C <= 64; at C >= 128 (the unpacked
+    stage) tiles of 64 input channels by C, [tap][Cin / 64], each in the
+    ``wgmma`` layout."""
+    k, c, _ = w.shape
+    if c <= 64:
+        return _tile_layout(w)
+    return _tile_layout(w.reshape(-1, 64, c), wgmma=True)
+
+
 def pack_mrf_weights(branches: List[BranchWeights], device=None) -> torch.Tensor:
-    """The stage's conv weights as one flat bf16 tensor of (C, C) tiles
-    [branch][pair][conv1, conv2][tap], each [Cin][Cout] in :func:`_tile_layout`:
-    the order in which the tensor-core kernels consume them, tap by tap."""
-    tiles = torch.cat([w[j] for w1, _, w2, _ in branches for j in range(w1.shape[0])
-                       for w in (w1, w2)])
-    return _tile_layout(tiles).reshape(-1).to(device=device, dtype=torch.bfloat16).contiguous()
+    """The stage's conv weights as one flat bf16 tensor of tiles
+    [branch][pair][conv1, conv2] (:func:`_conv_tiles` each): the order in
+    which the tensor-core kernels consume them, tap by tap."""
+    tiles = [_conv_tiles(w[j]).reshape(-1) for w1, _, w2, _ in branches
+             for j in range(w1.shape[0]) for w in (w1, w2)]
+    return torch.cat(tiles).to(device=device, dtype=torch.bfloat16).contiguous()
+
+
+def unpacked_smem_bytes(c: int, tile: int, h: int, d: int) -> int:
+    """Shared memory of one block of the unpacked stage's tensor-core kernel
+    (``csrc/mrf_pair.cu:smem_bytes``) for a pair of radius h and dilation d:
+    the operand of conv1 over tile + 2(h*d + h) rows and of conv2 over
+    tile + 2h, bf16 with padded rows, and the ring of weight tiles (C x C
+    at C <= 64, else 64 rows by C)."""
+    rows = 64 if c >= 128 else c
+    return ((2 * tile + 2 * (h * d + h) + 2 * h) * (c + MMA_PAD) * 2
+            + pair_geometry(c).stages * rows * (c + MMA_PAD) * 2)
+
+
+def unpacked_tile(c: int, kernel_sizes: Sequence[int], dilations: Sequence[int]) -> int:
+    """The time tile of :func:`mrf_stage_unpacked`'s tensor-core kernel: the
+    largest of ``PAIR_TILES`` whose every pair fits in a block's shared memory
+    and whose conv1 rows, tile + 2h, its warpgroups cover (64 rows each).
+    (240 at C <= 128 and k <= 11; 64 at C = 256.)"""
+    h = max((k - 1) // 2 for k in kernel_sizes)
+    for tile in PAIR_TILES:
+        if tile + 2 * h <= pair_geometry(c).threads // 2 and all(
+                unpacked_smem_bytes(c, tile, (k - 1) // 2, d) <= SMEM_LIMIT
+                for k in kernel_sizes for d in dilations):
+            return tile
+    raise ValueError("mrf_stage_unpacked: the kernel does not fit in shared memory")
 
 
 def up_tap_order(up_kernel: int, up_stride: int, up_padding: int) -> List[int]:
@@ -411,8 +462,9 @@ class PackedUpMRF(NamedTuple):
 
 
 def pack_mrf_stage(branches: List[BranchWeights], device=None) -> PackedMRF:
-    """The ``packed`` argument of :func:`mrf_stage` for a bf16 ``x``: made
-    once per weight set, so a request does not round and lay them out again."""
+    """The ``packed`` argument of :func:`mrf_stage` and
+    :func:`mrf_stage_unpacked` for a bf16 ``x``: made once per weight set, so
+    a request does not round and lay them out again."""
     return PackedMRF(pack_mrf_weights(branches, device),
                      _flat_biases(branches, torch.bfloat16, device))
 
@@ -510,22 +562,33 @@ def mrf_stage(x: torch.Tensor, branches: List[BranchWeights], kernel_sizes: Sequ
 
 
 def mrf_stage_unpacked(x: torch.Tensor, branches: List[BranchWeights],
-                       kernel_sizes: Sequence[int],
-                       dilations: Sequence[int] = DILATIONS) -> torch.Tensor:
+                       kernel_sizes: Sequence[int], dilations: Sequence[int] = DILATIONS,
+                       packed: Optional[PackedMRF] = None) -> torch.Tensor:
     """One MRF stage over ``x (B, T, C)`` in ``x.dtype`` (port of
     ``fused_mrf_stage``, mrf.py:60-168): BF16 mode for a bf16 ``x`` (one
     rounding after conv plus bias, bf16 leaky and residual, f32 branch mean),
     F32 for an f32 one. Weights are rounded to ``x.dtype``; the output has
     ``x.dtype``.
 
-    The CUDA kernel runs one residual pair of one branch per launch, over
-    time tiles with that pair's own halo, so its shared memory fits at
-    C = 256 (``csrc/mrf_stage_fma.cu:svt_mrf_stage_unpacked``)."""
+    The CUDA kernels run one residual pair of one branch per launch, over
+    time tiles with that pair's own halo, so their shared memory fits at
+    C = 256. A bf16 ``x`` runs on the tensor cores
+    (``csrc/mrf_pair.cu:svt_mrf_stage_unpacked``; ``mma.sync`` at 32
+    channels, ``wgmma`` from 64); an f32 ``x`` keeps its weights in f32, which
+    a product of bf16 pairs does not compute, so it runs the f32 FMA kernel
+    (``csrc/mrf_stage_fma.cu:svt_mrf_stage_unpacked_fma``, counted as
+    ``mrf_stage_unpacked_fma``). ``packed``: the weights from
+    :func:`pack_mrf_stage` for these branches (a bf16 ``x`` only), else they
+    are packed on each call."""
     _check_input("mrf_stage_unpacked", x)
     mode = BF16 if x.dtype == torch.bfloat16 else F32
     branches = [tuple(_round_to(a, x.dtype) for a in br) for br in branches]
     bsz, t, c = x.shape
     _check_branches(branches, kernel_sizes, dilations, c)
+    if packed is not None:
+        n_w = 2 * len(dilations) * sum(kernel_sizes) * c * c
+        _check_packed("mrf_stage_unpacked", x, mode == BF16, packed,
+                      (n_w, 2 * len(dilations) * len(branches) * c))
     if x.device.type == "cpu":
         return mrf_stage_plain(x, branches, kernel_sizes, dilations, mode)
 
@@ -534,12 +597,6 @@ def mrf_stage_unpacked(x: torch.Tensor, branches: List[BranchWeights],
     if bsz > 65535:
         raise ValueError("mrf_stage_unpacked kernel: batch above 65535")
     x = x.contiguous()
-    h = max((k - 1) // 2 for k in kernel_sizes)
-    halo = h * max(dilations) + 2 * h  # conv1's operand halo plus conv2's
-    elt = 2 if mode == BF16 else 4  # shared memory stores the mode's own type
-    tile = pick_tile(lambda tl: elt * (2 * tl + 2 * halo) * (c + 1))
-    w = _flat_weights(branches, x.device)
-    b = _flat_biases(branches, x.dtype, x.device)
     ints = _branch_ints(branches, kernel_sizes, dilations)
     out = torch.empty_like(x)
     n_pairs, n_branches = len(dilations), len(branches)
@@ -548,12 +605,22 @@ def mrf_stage_unpacked(x: torch.Tensor, branches: List[BranchWeights],
     s1 = torch.empty_like(x) if n_pairs > 2 else out
     acc = (torch.empty((bsz, t, c), device=x.device, dtype=torch.float32)
            if n_branches > 1 else out)
+    if mode == BF16:
+        tile = unpacked_tile(c, kernel_sizes, dilations)
+        w, b = packed or pack_mrf_stage(branches, x.device)
+        name, entry = "mrf_stage_unpacked", load_library().svt_mrf_stage_unpacked
+    else:
+        h = max((k - 1) // 2 for k in kernel_sizes)
+        halo = h * max(dilations) + 2 * h  # conv1's operand halo plus conv2's
+        tile = pick_tile(lambda tl: 4 * (2 * tl + 2 * halo) * (c + 1))
+        w = _flat_weights(branches, x.device)
+        b = _flat_biases(branches, x.dtype, x.device)
+        name, entry = "mrf_stage_unpacked_fma", load_library().svt_mrf_stage_unpacked_fma
     n = ctypes.c_int(0)  # one kernel per residual pair of each branch
     with torch.cuda.device(x.device):
-        launch("mrf_stage_unpacked", load_library().svt_mrf_stage_unpacked, x.data_ptr(),
-               out.data_ptr(), s0.data_ptr(), s1.data_ptr(), acc.data_ptr(), w.data_ptr(),
-               b.data_ptr(), bsz, t, c, tile, *ints, int(mode == BF16), ctypes.byref(n),
-               launched=n)
+        launch(name, entry, x.data_ptr(), out.data_ptr(), s0.data_ptr(), s1.data_ptr(),
+               acc.data_ptr(), w.data_ptr(), b.data_ptr(), bsz, t, c, tile, *ints,
+               ctypes.byref(n), launched=n)
     return out
 
 

@@ -277,11 +277,14 @@ def test_mrf_stage_unpacked_kernel_matches_plain(c, dtype, one_pair):
     tdt = torch.float32 if dtype == "f32" else torch.bfloat16
     br = _branches(rng, c, ks, dil, 0.02, tdt)
     x = torch.from_numpy(rng.normal(0, 0.5, (2, 777, c)).astype(np.float32)).to(tdt).cuda()
-    before = tmrf.LAUNCHES["mrf_stage_unpacked"]
+    # bf16 on the tensor cores; f32 weights on the FMA body
+    name = "mrf_stage_unpacked_fma" if dtype == "f32" else "mrf_stage_unpacked"
+    before = dict(tmrf.LAUNCHES)
     got = tmrf.mrf_stage_unpacked(x, br, ks, dil)
     torch.cuda.synchronize()
     # one kernel per residual pair of each branch
-    assert tmrf.LAUNCHES["mrf_stage_unpacked"] == before + len(ks) * len(dil)
+    assert {k: v - before[k] for k, v in tmrf.LAUNCHES.items() if v != before[k]} == {
+        name: len(ks) * len(dil)}
     mode = tmrf.F32 if dtype == "f32" else tmrf.BF16
     want = tmrf.mrf_stage_plain(x, br, ks, dil, mode)
     assert got.dtype == want.dtype == tdt and got.shape == want.shape
@@ -290,6 +293,35 @@ def test_mrf_stage_unpacked_kernel_matches_plain(c, dtype, one_pair):
     else:
         _check_rounding_mode(got, want, tmrf.mrf_stage_plain(x, br, ks, dil, tmrf.F32),
                              one_pair)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("t", [1, 63, 65, 777, "tile"])
+@pytest.mark.parametrize("c", [32, 64, 128, 256])
+def test_mrf_stage_unpacked_kernel_at_lengths_off_the_mma_tiles(c, t, b):
+    """bf16 on the tensor cores at lengths below, across and on the GEMMs'
+    64-row tiles and the time tile (two whole time tiles), against the plain
+    version; weights packed once give the same bits."""
+    rng = np.random.default_rng(c + b)
+    if t == "tile":
+        t = 2 * tmrf.unpacked_tile(c, KS, DIL)
+    br = _branches(rng, c, KS, DIL, 0.02, torch.bfloat16)
+    x = torch.from_numpy(rng.normal(0, 0.5, (b, t, c)).astype(np.float32)).bfloat16().cuda()
+    got = tmrf.mrf_stage_unpacked(x, br, KS, DIL)
+    assert torch.equal(got, tmrf.mrf_stage_unpacked(x, br, KS, DIL,
+                                                    packed=tmrf.pack_mrf_stage(br, x.device)))
+    want = tmrf.mrf_stage_plain(x, br, KS, DIL, tmrf.BF16)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    exact = tmrf.mrf_stage_plain(x, br, KS, DIL, tmrf.F32)
+    got, want, exact = got.float(), want.float(), exact.float()
+    # chip_smoke.py's bf16 comparison: the max within what bf16 costs against
+    # the f32 result, or one bf16 ulp of the largest output (one flip); the
+    # mean under half the mean cost wherever there are rows enough to average
+    err, ref = (got - want).abs(), (want - exact).abs()
+    ulp = 2.0 ** (np.floor(np.log2(want.abs().max().item())) - 7)
+    assert err.max().item() <= max(ref.max().item(), ulp)
+    assert t < 64 or err.mean().item() < 0.5 * ref.mean().item()
 
 
 @pytest.mark.cuda
@@ -347,10 +379,12 @@ def test_wn_stack_kernel_matches_plain(dtype, n_layers):
     layers = _wn_layers(rng, n_layers, h, tdt)
     mask = (torch.arange(t)[None, :] < torch.tensor([t, 501])[:, None]).float()[..., None].cuda()
     x = (torch.from_numpy(rng.normal(0, 1, (2, t, h)).astype(np.float32)).cuda() * mask).to(tdt)
-    before = tmrf.LAUNCHES["wn_stack"]
+    name = "wn_stack_fma" if dtype == "f32" else "wn_stack"  # f32 weights: the FMA body
+    before = dict(tmrf.LAUNCHES)
     got = wn_stack(x, mask, layers, h, layers_per_call=4)
     torch.cuda.synchronize()
-    assert tmrf.LAUNCHES["wn_stack"] == before + (n_layers + 3) // 4
+    assert {k: v - before[k] for k, v in tmrf.LAUNCHES.items() if v != before[k]} == {
+        name: (n_layers + 3) // 4}
     want = wn_stack_plain(x, mask, layers, h, layers_per_call=4)
     assert got.dtype == want.dtype == tdt and got.shape == want.shape
     assert torch.all(got[1, 501:] == 0)
@@ -378,10 +412,13 @@ def test_wn_stack_packed_weights_and_single_launches(dtype):
                                wn_stack(x, mask, layers, h, 4), rtol=0, atol=0)
     skip = (torch.from_numpy(rng.normal(0, 0.5, (2, t, h)).astype(np.float32)).cuda()
             * mask).to(tdt)
-    before = tmrf.LAUNCHES["wn_stack"]
+    name = "wn_stack_fma" if dtype == "f32" else "wn_stack"
+    before = tmrf.LAUNCHES[name]
     got = wn_chunk(x, mask, layers[4:], h, skip, True, packed[1])
     torch.cuda.synchronize()
-    assert tmrf.LAUNCHES["wn_stack"] == before + 1
+    assert tmrf.LAUNCHES[name] == before + 1
+    assert torch.equal(torch.stack(got), torch.stack(wn_chunk(x, mask, layers[4:], h, skip,
+                                                                True)))
     want = wn_chunk_plain(x, mask, layers[4:], h, skip, True)
     exact = wn_chunk_plain(x.float(), mask, layers[4:], h, skip.float(), True)
     for g, w, e in zip(got, want, exact):
@@ -523,7 +560,8 @@ def test_mrf_stage_train_function_on_the_card(dtype):
     out = mrf_stage_train(x, br, KS, DIL)
     out.float().abs().mean().backward()
     torch.cuda.synchronize()
-    assert tmrf.LAUNCHES["mrf_stage_unpacked"] == before["mrf_stage_unpacked"] + 9
+    fwd = "mrf_stage_unpacked_fma" if dtype == "f32" else "mrf_stage_unpacked"
+    assert tmrf.LAUNCHES[fwd] == before[fwd] + 9
     assert tmrf.LAUNCHES["mrf_branch_bwd"] == before["mrf_branch_bwd"] + 18
     got = [x.grad] + [a.grad for b in br for a in b]
     assert all(g is not None and torch.isfinite(g).all() for g in got)

@@ -420,12 +420,79 @@ def test_up_mrf_stage_tile_fits_the_block(channels, mode, k_post):
     assert tile == {(64, 32): 128, (128, 64): 32 if mode == tmrf.F32 else 64}[channels]
 
 
-def _row_major(flat, n, k, c):
-    """Packed tiles back as (n, K, C) [Cin][Cout]: at C = 64 out of the
-    ``wgmma`` core-matrix layout [C / 8][K / 8][8 columns][8 rows]."""
-    if c != tmrf.WGMMA_CHANNELS:
+def _row_major(flat, n, k, c, wgmma=None):
+    """Packed tiles back as (n, K, C) [Cin][Cout]: for ``wgmma`` (by default
+    at C = 64) out of the core-matrix layout [C / 8][K / 8][8 columns][8 rows]."""
+    if not (c == tmrf.WGMMA_CHANNELS if wgmma is None else wgmma):
         return flat.reshape(n, k, c)
     return flat.reshape(n, c // 8, k // 8, 8, 8).permute(0, 2, 4, 1, 3).reshape(n, k, c)
+
+
+@pytest.mark.parametrize("d", [1, 3, 5])
+@pytest.mark.parametrize("k", [3, 7, 11])
+@pytest.mark.parametrize("c", tmrf.UNPACKED_CHANNELS)
+def test_unpacked_tile_fits_the_block(c, k, d):
+    """The unpacked stage's tile: every pair's buffers and ring fit in a
+    block, and conv1's rows (tile + 2h) fit its warpgroups (four; two at
+    C = 256, whose one 256-column pass needs 128 accumulators a thread)."""
+    tile = tmrf.unpacked_tile(c, (k,), (d,))
+    h = (k - 1) // 2
+    geo = tmrf.pair_geometry(c)
+    assert geo == ((256, 3) if c == 256 else (512, 4))
+    assert tile + 2 * h <= geo.threads // 2 <= tmrf.MMA_MAX_ROWS
+    assert tmrf.unpacked_smem_bytes(c, tile, h, d) <= tmrf.SMEM_LIMIT
+    assert tile == (240 if c <= 128 else 64)
+    # the serving stage's tile holds every one of its pairs
+    stage = tmrf.unpacked_tile(c, KS, DIL)
+    assert stage <= tile and tmrf.unpacked_smem_bytes(c, stage, h, d) <= tmrf.SMEM_LIMIT
+    assert stage == (64 if c == 256 else 240)
+
+
+@pytest.mark.parametrize("c", [64, 128, 256])
+def test_unpacked_packed_weights_round_trip(c):
+    """From C = 64 a conv's tiles are 64 input channels by C, [tap][Cin / 64],
+    in ``wgmma``'s core matrices; convs in the order [branch][pair][conv1,
+    conv2]."""
+    rng = np.random.default_rng(c)
+    ks = (3, 5)
+    br = [tuple(torch.from_numpy(rng.normal(0, 0.1, s).astype(np.float32))
+                for s in ((2, k, c, c), (2, c), (2, k, c, c), (2, c))) for k in ks]
+    packed = tmrf.pack_mrf_weights(br)
+    assert packed.dtype == torch.bfloat16 and packed.numel() == 2 * 2 * sum(ks) * c * c
+    at = 0
+    for (w1, _, w2, _), k in zip(br, ks):
+        for j in range(2):
+            for w in (w1[j], w2[j]):
+                size = k * c * c
+                tiles = _row_major(packed[at:at + size].float(), size // (64 * c), 64, c, True)
+                assert torch.equal(tiles.reshape(k, c, c), w.bfloat16().float())
+                at += size
+    # element (ci, co) of tap t of the first conv, by hand
+    t, ci, co = 1, c // 2 + 6, c - 3
+    tile = t * (c // 64) + ci // 64
+    off = tile * 64 * c + (co // 8) * 512 + (ci % 64 // 8) * 64 + (co % 8) * 8 + ci % 8
+    assert packed[off] == br[0][0][0, t, ci, co].bfloat16()
+
+
+@pytest.mark.parametrize("n", [128, 64])
+def test_ab_pair_pass_split_build(n, tmp_path):
+    """The pass-width tool's split build: it finds what it replaces in a copy
+    of ``mrf_pair.cu``, and its weight tiles [pass][tap][Cin / 64] of 64 x n
+    round-trip back to the conv."""
+    from smart_vocoder_torch.kernels import _build
+    from smart_vocoder_torch.tools import ab_pair_pass
+
+    (tmp_path / "mrf_pair.cu").write_text((_build.SRC_DIR / "mrf_pair.cu").read_text())
+    ab_pair_pass._split_sources(n, tmp_path)
+    text = (tmp_path / "mrf_pair.cu").read_text()
+    assert f"kPassN = {n};" in text and text.count("struct PairGeometry") == 1
+    assert "ring_start<G::TN, G::KT," in text and "ring_start<C," not in text
+    c, k = 256, 3
+    w = torch.from_numpy(np.random.default_rng(n).normal(0, 0.1, (k, c, c)).astype(np.float32))
+    tiles = ab_pair_pass._split_layout(n)["_conv_tiles"](w).reshape(-1)
+    back = _row_major(tiles, k * c * c // (64 * n), 64, n, True)
+    back = back.reshape(c // n, k, c // 64, 64, n).permute(1, 2, 3, 0, 4)
+    assert torch.equal(back.reshape(k, c, c), w)
 
 
 def test_packed_weights_round_trip():
@@ -537,6 +604,26 @@ def test_weights_are_packed_once_per_weight_set():
                        tmrf.up_mrf_stage(u.bfloat16(), *args))
 
 
+@pytest.mark.parametrize("c", [32, 128])
+def test_unpacked_stage_takes_weights_packed_once(c):
+    """``mrf_stage_unpacked(packed=)`` with ``pack_mrf_stage``'s weights
+    computes what it computes without them; packed weights for other
+    branches, or for an f32 x (which keeps f32 weights), are refused."""
+    rng = np.random.default_rng(c + 2)
+    br = _tb(_branches(rng, c))
+    x = torch.from_numpy(rng.normal(0, 0.5, (1, 40, c)).astype(np.float32))
+    packed = tmrf.pack_mrf_stage(br)
+    assert torch.equal(tmrf.mrf_stage_unpacked(x.bfloat16(), br, KS, DIL, packed=packed),
+                       tmrf.mrf_stage_unpacked(x.bfloat16(), br, KS, DIL))
+    with pytest.raises(ValueError):  # an f32 x keeps f32 weights
+        tmrf.mrf_stage_unpacked(x, br, KS, DIL, packed=packed)
+    with pytest.raises(ValueError):  # packed for three branches, given two
+        tmrf.mrf_stage_unpacked(x.bfloat16(), br[:2], KS[:2], DIL, packed=packed)
+    with pytest.raises(ValueError):  # packed for one pair more
+        tmrf.mrf_stage_unpacked(x.bfloat16(), [tuple(a[:2] for a in b) for b in br], KS,
+                                DIL[:2], packed=packed)
+
+
 def _decoder_params(rng, cfg, inter=16):
     """Folded decoder weights of ``cfg`` in torch's layouts, from ``rng``."""
     def t(*shape, scale=0.1):
@@ -589,9 +676,11 @@ def test_decoder_stacks_a_stage_s_branches_once():
                            for x_, y_ in zip(branches, fresh) for a, b in zip(x_, y_))
             kinds = [type(kernel).__name__ for _, kernel in packed]
             bf16 = dtype == "bf16"
-            # folded up, the stage of 64 takes f32 activations at hifi >= 2
+            # folded up, the stage of 64 takes f32 activations at hifi >= 2; the
+            # stage of 128 takes the unpacked kernel under pallas_stage2
             middle = ("PackedUpMRF" if hifi < 2 else "NoneType") if stage2 else "PackedMRF"
-            assert kinds == ["NoneType", middle if bf16 else "NoneType",
+            assert kinds == ["PackedMRF" if bf16 and stage2 else "NoneType",
+                             middle if bf16 else "NoneType",
                              "PackedUpMRF" if bf16 or hifi else "NoneType"]
 
 

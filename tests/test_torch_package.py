@@ -112,6 +112,7 @@ def test_port_imports_no_jax():
         "        'smart_vocoder_torch.kernels.mrf_train', 'smart_vocoder_torch.tools',\n"
         "        'smart_vocoder_torch.tools.ab_mrf_train',\n"
         "        'smart_vocoder_torch.tools.ab_stage_mma',\n"
+        "        'smart_vocoder_torch.tools.ab_pair_pass',\n"
         "        'smart_vocoder_torch.tools.exp_mrf_variants']\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"

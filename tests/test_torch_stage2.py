@@ -152,6 +152,24 @@ def test_stage2_route_bf16_matches_jax(stage2_setup):
     assert port_err < 0.5 * jax_err, (port_err, jax_err)
 
 
+@pytest.mark.parametrize("dtype,hifi", [("f32", 0), ("bf16", 0), ("bf16", 2)])
+def test_stage2_route_with_packed_weights_gives_the_same_bits(stage2_setup, dtype, hifi):
+    """``pack_decoder(pallas_stage2=True)`` packs the stage that takes the
+    unpacked kernel (bf16 tiles where the stage runs in bf16), and
+    ``decoder_apply(packed=)`` gives the bits it gives without them."""
+    _, state, x = stage2_setup
+    cfg = tdec.DecoderConfig(*STAGE2_ARGS)
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    packed = tdec.pack_decoder(state, cfg, tdt, hifi, pallas_stage2=True)
+    kinds = [type(kernel).__name__ for _, kernel in packed]
+    assert kinds[0] == ("PackedMRF" if dtype == "bf16" else "NoneType")
+    xt = torch.from_numpy(x)
+    got = tdec.decoder_apply(state, xt, cfg, dtype=tdt, hifi_tail=hifi, pallas_stage2=True,
+                             packed=packed)
+    want = tdec.decoder_apply(state, xt, cfg, dtype=tdt, hifi_tail=hifi, pallas_stage2=True)
+    assert got.shape == (1, 2048, 1) and torch.equal(got, want)
+
+
 # ------------------------------------------ pallas_stage2=False is unchanged
 def _routing_before_stage2(p, x, cfg, dtype, hifi):
     """The stage routing of decoder_apply before ``pallas_stage2``: the last

@@ -26,12 +26,16 @@ import numpy as np
 import pytest
 import torch
 
+from smart_vocoder_torch.kernels._build import SMEM_LIMIT
+from smart_vocoder_torch.kernels.mrf import MMA_MAX_ROWS
 from smart_vocoder_torch.kernels.wn_stack import (
     pack_wn_stack,
     wn_chunk,
     wn_layers_from_state_dict,
     wn_stack,
     wn_stack_reference,
+    wn_smem_bytes,
+    wn_tile,
 )
 from smart_vocoder_torch.utils.torch_compat import state_dict_from_jax_params
 from smart_vocoder_tpu.kernels import encoder as jenc
@@ -171,31 +175,100 @@ def test_wn_stack_rejects_what_the_kernel_does_not_take():
         wn_stack(xt[..., :128], mt, tl, 128)
 
 
+def _unpack_bf16(p, n_layers):
+    """The bf16 chunk's tiles back as per-layer (w_in (5, H, 2H), w_rs (H, 2H))
+    [in][out] in torch's column order, and its biases likewise: out of the
+    ``wgmma`` core matrices, then the pass order [a 64 | b 64] per pass."""
+    def tiles_back(flat, taps):
+        t = flat.float().reshape(-1, 128 // 8, 64 // 8, 8, 8).permute(0, 2, 4, 1, 3)
+        t = t.reshape(H // 64, taps, H // 64, 64, 128).permute(1, 2, 3, 0, 4)
+        return t.reshape(taps, H, 2 * H)
+
+    def unpair(v):  # [..., pass, (a | b), 64] -> [a | b]
+        v = v.reshape(*v.shape[:-1], H // 64, 2, 64)
+        return torch.cat([v[..., 0, :].flatten(-2), v[..., 1, :].flatten(-2)], -1)
+
+    n_in = 5 * H * 2 * H
+    out = []
+    for i in range(n_layers):
+        w_in = unpair(tiles_back(p.w[i, :n_in], 5))
+        w_rs, b_rs = unpair(tiles_back(p.w[i, n_in:], 1)[0]), unpair(p.b_rs[i])
+        if p.last_skip_only and i == n_layers - 1:  # [skip | zeros] -> [zeros | skip]
+            w_rs, b_rs = (torch.cat([v[..., H:], v[..., :H]], -1) for v in (w_rs, b_rs))
+        out.append((w_in, unpair(p.b_in[i]), w_rs, b_rs))
+    return out
+
+
 def test_packed_weights_compute_the_layers():
-    """The kernel's weight layout (``pack_wn_stack``), evaluated as the
-    kernel reads it -- a[t, o] = b_in[o] + sum over taps and inputs of
+    """The kernels' weight layouts (``pack_wn_stack``), evaluated as the
+    kernels read them -- a[t, o] = b_in[o] + sum over taps and inputs of
     x[t + tap - 2, i] * w_in[tap, i, o]; [res | skip] = acts @ w_rs + b_rs --
-    gives torch's convolutions; the skip-only last layer has a zero res half."""
+    give torch's convolutions. f32: per layer w_in (5, H, 2H) then w_rs
+    (H, 2H); bf16: tiles of 64 x 128 whose pass p pairs tanh (res) columns
+    64p.. with sigmoid (skip) columns H + 64p..; the skip-only last layer has
+    a zero res half (bf16: zeros beside the skip columns)."""
     x, _, layers = _inputs(6, 3)
     xt = torch.from_numpy(x[:, :16])
     tl = [tuple(torch.from_numpy(a) for a in lay) for lay in layers]
-    packed = pack_wn_stack(tl, H, torch.float32, layers_per_call=2)
-    assert [p.w_in.shape[0] for p in packed] == [2, 1]
-    for j, (w_in, b_in, w_rs, b_rs) in enumerate(tl):
-        p, i = packed[j // 2], j % 2
-        xp = torch.nn.functional.pad(xt, (0, 0, 2, 2))
-        a = p.b_in[i] + sum(xp[:, tap:tap + 16] @ p.w_in[i, tap] for tap in range(5))
-        want = torch.nn.functional.conv1d(xt.transpose(1, 2), w_in, b_in, padding=2)
-        torch.testing.assert_close(a, want.transpose(1, 2), rtol=1e-5, atol=1e-5)
-        rs = xt @ p.w_rs[i] + p.b_rs[i]
-        want = torch.nn.functional.conv1d(xt.transpose(1, 2), w_rs, b_rs).transpose(1, 2)
-        if j == len(tl) - 1:
-            assert torch.all(rs[..., :H] == 0)
-            rs = rs[..., H:]
-        torch.testing.assert_close(rs, want, rtol=1e-5, atol=1e-5)
-    bf = pack_wn_stack(tl, H, torch.bfloat16, layers_per_call=2)
-    assert bf[0].dtype == torch.bfloat16
-    assert torch.equal(bf[0].w_in, bf[0].w_in.bfloat16().float())
+    for dt in (torch.float32, torch.bfloat16):
+        packed = pack_wn_stack(tl, H, dt, layers_per_call=2)
+        assert [p.w.shape[0] for p in packed] == [2, 1]
+        assert [p.last_skip_only for p in packed] == [False, True]
+        assert all(p.dtype == dt and p.w.dtype == dt for p in packed)
+        if dt == torch.float32:
+            views = [[(p.w[i, :5 * H * 2 * H].reshape(5, H, 2 * H), p.b_in[i],
+                       p.w[i, 5 * H * 2 * H:].reshape(H, 2 * H), p.b_rs[i])
+                      for i in range(p.w.shape[0])] for p in packed]
+        else:
+            views = [_unpack_bf16(p, p.w.shape[0]) for p in packed]
+        xr = xt.to(dt).float()
+        for j, (w_in, b_in, w_rs, b_rs) in enumerate(tl):
+            pw_in, pb_in, pw_rs, pb_rs = views[j // 2][j % 2]
+            w_in, b_in, w_rs, b_rs = (a.to(dt).float() for a in (w_in, b_in, w_rs, b_rs))
+            xp = torch.nn.functional.pad(xr, (0, 0, 2, 2))
+            a = pb_in + sum(xp[:, tap:tap + 16] @ pw_in[tap] for tap in range(5))
+            want = torch.nn.functional.conv1d(xr.transpose(1, 2), w_in, b_in, padding=2)
+            torch.testing.assert_close(a, want.transpose(1, 2), rtol=1e-5, atol=1e-5)
+            rs = xr @ pw_rs + pb_rs
+            want = torch.nn.functional.conv1d(xr.transpose(1, 2), w_rs, b_rs).transpose(1, 2)
+            if j == len(tl) - 1:
+                assert torch.all(rs[..., :H] == 0)
+                rs = rs[..., H:]
+            torch.testing.assert_close(rs, want, rtol=1e-5, atol=1e-5)
+
+
+def test_bf16_packed_layout_pairs_each_gate():
+    """Column 64p + c of a bf16 pass tile holds tanh column 64p + c, and
+    column 64p + 64 + c its sigmoid partner H + 64p + c (the epilogue forms
+    the gate from one thread's two accumulators); likewise res and skip."""
+    _, _, layers = _inputs(12, 2)
+    tl = [tuple(torch.from_numpy(a) for a in lay) for lay in layers]
+    p = pack_wn_stack(tl, H, torch.bfloat16, layers_per_call=2)[0]
+    w_in = tl[0][0].bfloat16()  # (2H, H, 5)
+    tile_elems, n_in = 64 * 128, 5 * H * 2 * H
+    for pas, tap, kc, ci, c in ((0, 0, 0, 3, 5), (1, 4, 2, 63, 60), (2, 2, 1, 17, 0)):
+        tile = (pas * 5 + tap) * (H // 64) + kc
+        for half, out in ((0, 64 * pas + c), (1, H + 64 * pas + c)):
+            col = half * 64 + c
+            at = tile * tile_elems + (col // 8) * 512 + (ci // 8) * 64 + (col % 8) * 8 + ci % 8
+            assert p.w[0, at] == w_in[out, kc * 64 + ci, tap]
+        assert p.b_in[0, 128 * pas + c] == tl[0][1][64 * pas + c].bfloat16().float()
+        assert p.b_in[0, 128 * pas + 64 + c] == tl[0][1][H + 64 * pas + c].bfloat16().float()
+    w_rs = tl[1][2].bfloat16()  # skip-only: (H, H, 1)
+    at = n_in + (1 * (H // 64) + 2) * tile_elems  # pass 1, chunk 2: skip 64..127 | zeros
+    tile = p.w[1, at:at + tile_elems]
+    assert torch.all(tile[8 * 512:] == 0)
+    assert tile[(5 // 8) * 512 + (9 // 8) * 64 + (5 % 8) * 8 + 9 % 8] == w_rs[64 + 5, 128 + 9, 0]
+
+
+@pytest.mark.parametrize("n_layers", [1, 2, 3, 4])
+def test_wn_tile_fits_the_block(n_layers):
+    """The tensor-core kernel's tile at H = 192: its buffers and ring fit in
+    a block, and the first layer's rows fit the four warpgroups."""
+    tile = wn_tile(H, n_layers)
+    assert tile + 4 * n_layers - 4 <= MMA_MAX_ROWS
+    assert wn_smem_bytes(H, tile, n_layers) <= SMEM_LIMIT
+    assert tile == (96 if n_layers <= 2 else 64)
 
 
 def test_wn_stack_rejects_packed_weights_that_do_not_match():
