@@ -9,8 +9,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
 2. build: compiles the CUDA kernels (smart_vocoder_torch/kernels/csrc) with
    nvcc for sm_90a into smart_vocoder_torch/_build/, and counts the MMA
    instructions in the SASS of every bf16 instantiation of the tensor-core
-   kernels: the two stages, the unpacked stage's pair and the WN stack
-   (``wgmma`` from 64 channels, ``mma.sync`` at 32).
+   kernels: the two stages, the unpacked stage's pair (and its replay mode),
+   the WN stack (``wgmma`` from 64 channels, ``mma.sync`` at 32), and the
+   branch backward's dx step (the same) and weight-gradient GEMM
+   (``mma.sync``).
 3. kernels: each kernel against its plain PyTorch version on the card (TF32
    off), at the main-path shapes -- stage 3 x (2, 128000, 64), stage 4
    u (2, 128000, 64) with the conv_post tail; the WN stack at x (32, 1000,
@@ -27,11 +29,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    shapes; the Triton gate at x (32, 1000, 384) with g (32, 1, 384) and
    without, and ragged; the MRF branch backward for k = 3, 7, 11 at the
    training shapes (16, 256, 256), (16, 2048, 128), (16, 4096, 64), (16, 8192,
-   32) and a ragged length, in f32 and in bf16: the kernel's replay against
-   the plain replay, and its gradients against the plain backward on that
-   same replay (the leaky derivative jumps at 0, so on separate replays one
-   value within rounding noise of 0 moves a gradient entry by a whole term);
-   prints both times.
+   32) and a ragged length, in f32 (the FMA body) and in bf16 (the tensor-core
+   kernels, and only they): the kernel's replay against the plain replay,
+   and its gradients against the plain backward on that same replay (the
+   leaky derivative jumps at 0, so on separate replays one value within
+   rounding noise of 0 moves a gradient entry by a whole term); the bf16
+   backward must beat the FMA route at each training shape.
 4. slice: iitp_base at full width, weights from the port's seeded init,
    ``Vocoder.mel_to_wav`` on B=8 x 1000 frames plus one short request padded
    to the bucket, each path with the launch counts reset just before it:
@@ -53,8 +56,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``fused_gate``, against the module graph's ``gated_activation``.
 7. training-kernel A/B at full width (``tools/ab_mrf_train.py``): B = 16,
    the four training shapes, bf16, ``mean(|stage(x)|)``; forward + backward
-   of cuDNN autograd against ``mrf_stage_train`` (forward on the tensor
-   cores, weights packed per call), interleaved.
+   of cuDNN autograd against ``mrf_stage_train`` (forward and backward on the
+   tensor cores, weights packed per call; no ``*_fma`` launch), interleaved.
 8. variants (``tools/exp_mrf_variants.py``): stage 3, x (32, 128000, 64).
 
 Every kernel's record carries its bound: the larger of its operations over
@@ -63,13 +66,19 @@ operand is a bf16 value, or a hi/lo pair of them in the F32 modes, which
 then count two passes) and its bytes (inputs read once, outputs written once)
 over 3.35 TB/s. No single PyTorch call computes an 18-conv stage, a WN stack,
 a branch backward or the gate, so ``library_ms`` is null throughout.
-``tflops`` is the record's operations over its kernel time. ``earlier_ms``,
-for the four kernels and the variant that moved to the tensor cores, is the
-time measured in this run of the f32 FMA kernel they replaced (today's route
-for true-f32 weights, counted under its own ``*_fma`` name) at the same shape
-on f32 inputs; null for the other kernels. The timed calls pass the weights
-packed once (``pack_mrf_stage``, ``pack_up_mrf_stage``, ``pack_wn_stack``),
-as ``Vocoder`` does.
+``tflops`` is the record's operations over its kernel time. Times: each
+timed call runs beside its plain version (and the kernel it replaced) in
+``ROUNDS`` interleaved rounds of a few back-to-back calls timed with CUDA
+events (``time_legs``); ``ms`` is the median over the rounds, ``ms_min`` and
+``ms_max`` its range, and for a call under 2 ms ``card_ms`` (with its range)
+is the card's busy time per call under ``torch.profiler``, which leaves out
+what the host spends launching. ``earlier_ms``, for the five kernels and the
+variant that moved to the tensor cores, is the time measured in this run of
+the f32 FMA kernel they replaced (today's route for true-f32 weights,
+counted under its own ``*_fma`` name) at the same shape on f32 inputs; null
+for the gate. The timed calls pass the weights packed once
+(``pack_mrf_stage``, ``pack_up_mrf_stage``, ``pack_wn_stack``), as
+``Vocoder`` does.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -102,12 +111,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches, after one warm-up."""
+ROUNDS = 5  # interleaved timing rounds of every measured call
+
+
+def event_ms(fn, iters: int) -> float:
+    """Mean device ms of ``fn`` over ``iters`` back-to-back calls (CUDA events)."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
@@ -115,6 +125,69 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_legs(legs: dict, iters: int, rounds: int = ROUNDS) -> dict:
+    """Each leg's device ms per call, as tools/ab_stage_mma.py times: one
+    warm-up call each, then ``rounds`` interleaved rounds of ``iters`` calls
+    (every other round in reverse order); {leg: (median, min, max)}."""
+    import statistics
+
+    import torch
+
+    for fn in legs.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in legs}
+    order = list(legs.items())
+    for r in range(rounds):
+        for name, fn in (order if r % 2 == 0 else order[::-1]):
+            times[name].append(event_ms(fn, iters))
+    return {name: (statistics.median(v), min(v), max(v)) for name, v in times.items()}
+
+
+def card_ms(fn, calls: int = 5, rounds: int = ROUNDS) -> tuple:
+    """The card's busy ms per call of ``fn`` under torch.profiler (the device
+    time of its kernels, whatever the host's launches cost), over ``rounds``
+    profiles of ``calls`` calls: (median, min, max)."""
+    import statistics
+
+    import torch
+
+    from smart_vocoder_torch.tools import device_busy_ms
+
+    v = [device_busy_ms(lambda: [fn() for _ in range(calls)], torch.device("cuda")) / calls
+         for _ in range(rounds)]
+    return statistics.median(v), min(v), max(v)
+
+
+def span(t: tuple) -> str:
+    return f"{t[0]:.4f} ({t[1]:.4f}-{t[2]:.4f})"
+
+
+def card_span(rec: dict) -> str:
+    """A record's card time with its range, or why there is none."""
+    if rec.get("card_ms") is None:
+        return "card not profiled (2 ms or more)"
+    return f"card {span((rec['card_ms'], rec['card_ms_min'], rec['card_ms_max']))}"
+
+
+def kernel_times(kernel, plain, iters: int, earlier=None, profile: bool = False) -> dict:
+    """A kernel record's times: the kernel, its plain version and, where given,
+    the FMA kernel it replaced, interleaved (``time_legs``); the kernel's
+    median with its min and max over the rounds, and, for a call under 2 ms
+    (or with ``profile``), its card time from the profiler, which shows
+    whether the host's launches bound the events' time."""
+    legs = {"kernel": kernel, "plain": plain, **({"earlier": earlier} if earlier else {})}
+    t = time_legs(legs, iters)
+    rec = {"ms": t["kernel"][0], "ms_min": t["kernel"][1], "ms_max": t["kernel"][2],
+           "rounds": ROUNDS, "plain_ms": t["plain"][0], "card_ms": None,
+           "card_ms_min": None, "card_ms_max": None}
+    if earlier:
+        rec["earlier_ms"] = t["earlier"][0]
+    if rec["ms"] < 2.0 or profile:
+        rec["card_ms"], rec["card_ms_min"], rec["card_ms_max"] = card_ms(kernel)
+    return rec
 
 
 def compare(name, got, want, exact, mode_f32: bool, ulp_slack: bool = False) -> float:
@@ -185,14 +258,16 @@ def bound(flops: float, tensors) -> dict:
 
 
 TENSOR_CORE_KERNELS = ("up_mrf_stage_kernel", "mrf_stage_kernel", "mrf_pair_mma_kernel",
-                       "wn_stack_mma_kernel")
+                       "wn_stack_mma_kernel", "mrf_pair_bwd_kernel", "mrf_dw_mma_kernel")
 
 
 def sass_mma_counts(so: str) -> dict:
     """MMA instructions in the built library's SASS (``cuobjdump -sass``), per
     instantiation of the tensor-core kernels (the two stages, the unpacked
-    stage's pair, the WN stack): {demangled-ish name: {"HGMMA": n, "HMMA": n,
-    "FFMA": n}}. ``HGMMA`` is ``wgmma``, ``HMMA`` is ``mma.sync``."""
+    stage's pair and its replay mode, the WN stack, the backward's dx step and
+    weight-gradient GEMM): {demangled-ish name: {"HGMMA": n, "HMMA": n,
+    "FFMA": n}}, template arguments as numbers (a bool as 0 or 1). ``HGMMA`` is
+    ``wgmma``, ``HMMA`` is ``mma.sync``."""
     import re
     import shutil
 
@@ -202,10 +277,10 @@ def sass_mma_counts(so: str) -> dict:
     counts, current = {}, None
     for line in proc.stdout:
         if "Function :" in line:
-            m = re.search(rf"\d+({'|'.join(TENSOR_CORE_KERNELS)})((?:ILi\d+E|Li\d+E)+)", line)
+            m = re.search(rf"\d+({'|'.join(TENSOR_CORE_KERNELS)})((?:I?L[ib]\d+E)+)", line)
             current = None
             if m:
-                current = f"{m.group(1)}<{', '.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+                current = f"{m.group(1)}<{', '.join(re.findall(r'L[ib](\d+)E', m.group(2)))}>"
                 counts[current] = {"HGMMA": 0, "HMMA": 0, "FFMA": 0}
         elif current:
             for op in counts[current]:
@@ -289,19 +364,22 @@ def main() -> int:
     so = build()
     log(f"build: {time.time() - t0:.1f} s -> {os.path.relpath(so, ROOT)}")
     # every bf16 instantiation of the tensor-core kernels runs its convs on the
-    # tensor cores: wgmma from 64 channels (the WN stack's 192 too), mma.sync at 32
+    # tensor cores: wgmma from 64 channels (the WN stack's 192 too), mma.sync at
+    # 32; the backward's weight-gradient GEMM on mma.sync at every channel count
     sass = sass_mma_counts(str(so))
     for kernel, ops in sorted(sass.items()):
         log(f"  sass {kernel}: {ops}")
         params = kernel.split("<")[1].rstrip(">").split(", ")
-        # <[Cin,] C, mode> for the stages, <C> for the pair and the WN stack
+        # <[Cin,] C, mode> for the stages, <C[, replay]> for the pair kernels, the
+        # weight-gradient GEMM and the WN stack
         c = int(params[-2] if kernel.startswith(("mrf_stage", "up_mrf")) else params[0])
-        wgmma = c >= 64
+        wgmma = c >= 64 and not kernel.startswith("mrf_dw_mma")
         if ops["HGMMA" if wgmma else "HMMA"] == 0 or ops["HMMA" if wgmma else "HGMMA"] != 0:
             raise RuntimeError(f"{kernel}: not the MMA its channel count takes: {ops}")
-    if len(sass) != 15:
-        raise RuntimeError("expected the 6 + 4 instantiations of the stage kernels, 4 of the "
-                           f"unpacked stage's pair and 1 of the WN stack: {sass}")
+    if len(sass) != 27:
+        raise RuntimeError("expected the 6 + 4 instantiations of the stage kernels, 4 + 4 of "
+                           "the unpacked stage's pair (stage, replay), 1 of the WN stack, 4 of "
+                           f"the backward's dx step and 4 of its weight gradients: {sass}")
 
     hps = load_config(os.path.join(ROOT, "configs", "iitp_base.json"))
     net = init_synthesizer(build_synthesizer(hps, weight_norm=True), SEED)
@@ -340,14 +418,17 @@ def main() -> int:
             rec = records.setdefault("mrf_stage", {"max_abs_err": 0.0})
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             if t == 128000 and mode == K.F32_STORAGE:
-                rec["ms"] = cuda_ms(lambda: K.mrf_stage(xb, br, ks, dil, packed=packed, **kw), 5)
-                rec["plain_ms"] = cuda_ms(lambda: K.mrf_stage_plain(xb, br, ks, dil, mode), 5)
+                rec.update(kernel_times(
+                    lambda: K.mrf_stage(xb, br, ks, dil, packed=packed, **kw),
+                    lambda: K.mrf_stage_plain(xb, br, ks, dil, mode), 3))
                 rec.update(bound(mrf_flops(*x.shape, ks, len(dil)), [xb, got, *sum(br, ())]))
-                log(f"  mrf_stage {tuple(x.shape)} f32_storage: kernel {rec['ms']:.2f} ms, "
+                log(f"  mrf_stage {tuple(x.shape)} f32_storage: kernel {rec['ms']:.3f} ms "
+                    f"({rec['ms_min']:.3f}-{rec['ms_max']:.3f}, {card_span(rec)}), "
                     f"plain {rec['plain_ms']:.2f} ms, bound {rec['bound_ms']:.3f} ms  [{card}]")
             elif t == 128000:
-                ms = cuda_ms(lambda: K.mrf_stage(xb, br, ks, dil, packed=packed, **kw), 5)
-                log(f"  {tag}: kernel {ms:.2f} ms  [{card}]")
+                ms = time_legs({"k": lambda: K.mrf_stage(xb, br, ks, dil, packed=packed, **kw)},
+                               3)["k"]
+                log(f"  {tag}: kernel {span(ms)} ms  [{card}]")
         # true-f32 activations and weights: the f32 FMA route, with and without
         # the edge mask (the kernels that stage 3 and its variants ran before)
         br32 = stage_branches(2, torch.float32)
@@ -361,8 +442,9 @@ def main() -> int:
             rec = records.setdefault(kname, {"max_abs_err": 0.0})
             rec["max_abs_err"] = max(rec["max_abs_err"], compare(tag, got, want, want, True))
             if t == 128000:
-                rec["earlier_ms"] = cuda_ms(lambda: K.mrf_stage(x, br32, ks, dil, **kw), 3)
-                log(f"  {tag}: kernel {rec['earlier_ms']:.2f} ms  [{card}]")
+                ms = time_legs({"k": lambda: K.mrf_stage(x, br32, ks, dil, **kw)}, 1)["k"]
+                rec["earlier_ms"] = ms[0]
+                log(f"  {tag}: kernel {span(ms)} ms  [{card}]")
         del br32
         # the options of the packed-MRF variants, each against its plain version
         for label, mode, kw in (("nomask", K.BF16, {"mask_edges": False}),
@@ -382,12 +464,13 @@ def main() -> int:
             rec = records.setdefault("mrf_stage_variant", {"max_abs_err": 0.0})
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             if t == 128000 and label == "nomask":
-                rec["ms"] = cuda_ms(lambda: K.mrf_stage(xb, br, ks, dil, packed=packed, **kw), 5)
-                rec["plain_ms"] = cuda_ms(
-                    lambda: K.mrf_stage_plain(xb, br, ks, dil, mode, mask_edges, True), 5)
+                rec.update(kernel_times(
+                    lambda: K.mrf_stage(xb, br, ks, dil, packed=packed, **kw),
+                    lambda: K.mrf_stage_plain(xb, br, ks, dil, mode, mask_edges, True), 3))
                 rec.update(bound(mrf_flops(*x.shape, ks, len(dil)), [xb, got, *sum(br, ())]))
-                log(f"  mrf_stage {tuple(x.shape)} nomask: kernel {rec['ms']:.2f} ms, "
-                    f"plain {rec['plain_ms']:.2f} ms, bound {rec['bound_ms']:.3f} ms  [{card}]")
+                log(f"  mrf_stage {tuple(x.shape)} nomask: kernel {rec['ms']:.3f} ms "
+                    f"({rec['ms_min']:.3f}-{rec['ms_max']:.3f}), plain {rec['plain_ms']:.2f} "
+                    f"ms, bound {rec['bound_ms']:.3f} ms  [{card}]")
         del exact_v
         u = x  # stage 4 input: (B, Tu, 64) -> (B, 2*Tu, 1)
         up_w, up_b = dec["ups.3.weight"], dec["ups.3.bias"]
@@ -411,21 +494,22 @@ def main() -> int:
             rec = records.setdefault("up_mrf_stage", {"max_abs_err": 0.0})
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             if t == 128000 and hifi:
-                rec["ms"] = cuda_ms(lambda: K.up_mrf_stage(
+                rec.update(kernel_times(lambda: K.up_mrf_stage(
                     uu, args[0], args[1], 4, 2, 1, brr, ks, dil, post_weight=pw, hifi=True,
-                    packed=up_packed), 5)
-                rec["plain_ms"] = cuda_ms(lambda: K.up_mrf_stage_plain(uu, *args, mode, pw), 5)
+                    packed=up_packed), lambda: K.up_mrf_stage_plain(uu, *args, mode, pw), 3))
                 # hifi: f32 activations as hi + lo bf16 pairs, so two tensor-core passes
                 b_, tu_, cin_ = uu.shape
                 flops = 2 * (mrf_flops(b_, 2 * tu_, 32, ks, len(dil))
                              + 2.0 * 4 * cin_ * 32 * tu_ * b_ + 2.0 * 7 * 32 * 2 * tu_ * b_)
                 rec.update(bound(flops, [uu, got, args[0], pw, *sum(brr, ())]))
-                log(f"  up_mrf_stage {tuple(uu.shape)} hifi+post: kernel {rec['ms']:.2f} ms, "
-                    f"plain {rec['plain_ms']:.2f} ms, bound {rec['bound_ms']:.3f} ms  [{card}]")
+                log(f"  up_mrf_stage {tuple(uu.shape)} hifi+post: kernel {rec['ms']:.3f} ms "
+                    f"({rec['ms_min']:.3f}-{rec['ms_max']:.3f}), plain {rec['plain_ms']:.2f} ms, "
+                    f"bound {rec['bound_ms']:.3f} ms  [{card}]")
             elif t == 128000:
-                ms = cuda_ms(lambda: K.up_mrf_stage(uu, args[0], args[1], 4, 2, 1, brr, ks, dil,
-                                                    post_weight=pw, packed=up_packed), 5)
-                log(f"  {tag}+post: kernel {ms:.2f} ms  [{card}]")
+                ms = time_legs({"k": lambda: K.up_mrf_stage(
+                    uu, args[0], args[1], 4, 2, 1, brr, ks, dil, post_weight=pw,
+                    packed=up_packed)}, 3)["k"]
+                log(f"  {tag}+post: kernel {span(ms)} ms  [{card}]")
         # true-f32 u and weights, no hifi: the f32 FMA route (the kernel that
         # stage 4 ran before)
         brr = stage_branches(3, torch.float32)
@@ -439,9 +523,10 @@ def main() -> int:
         rec = records["up_mrf_stage"]
         rec["max_abs_err"] = max(rec["max_abs_err"], compare(tag, got, want, want, True))
         if t == 128000:
-            rec["earlier_ms"] = cuda_ms(lambda: K.up_mrf_stage(
-                u, args[0], args[1], 4, 2, 1, brr, ks, dil, post_weight=post.float()), 3)
-            log(f"  {tag}: kernel {rec['earlier_ms']:.2f} ms  [{card}]")
+            ms = time_legs({"k": lambda: K.up_mrf_stage(
+                u, args[0], args[1], 4, 2, 1, brr, ks, dil, post_weight=post.float())}, 1)["k"]
+            rec["earlier_ms"] = ms[0]
+            log(f"  {tag}: kernel {span(ms)} ms  [{card}]")
         del x, xb, u, exact
 
     def record(name, err):
@@ -475,18 +560,21 @@ def main() -> int:
             if shape[1] != 12345:
                 # the kernel with the weights packed once (as pack_decoder does),
                 # its plain version, and the f32 FMA route it replaces, same shape
-                ms = cuda_ms(lambda: K.mrf_stage_unpacked(xd, br, ks, dil, packed=packed), 5)
-                plain = cuda_ms(lambda: K.mrf_stage_plain(xd, br, ks, dil, mode), 3)
                 x32, br32 = x.float(), stage_branches(stage, torch.float32)
-                earlier = cuda_ms(lambda: K.mrf_stage_unpacked(x32, br32, ks, dil), 1)
+                times = kernel_times(
+                    lambda: K.mrf_stage_unpacked(xd, br, ks, dil, packed=packed),
+                    lambda: K.mrf_stage_plain(xd, br, ks, dil, mode), 2,
+                    earlier=lambda: K.mrf_stage_unpacked(x32, br32, ks, dil))
+                ms = times["ms"]
                 bnd = bound(mrf_flops(*shape, ks, len(dil)), [xd, got, *sum(br, ())])
-                log(f"  {tag}: kernel {ms:.3f} ms ({bnd['flops'] / ms / 1e9:.1f} TFLOP/s), "
-                    f"plain {plain:.2f} ms, bound {bnd['bound_ms']:.3f} ms, f32 FMA route "
-                    f"{earlier:.2f} ms  [{card}]")
-                if not ms < plain:
+                log(f"  {tag}: kernel {ms:.3f} ms ({times['ms_min']:.3f}-{times['ms_max']:.3f}, "
+                    f"{card_span(times)}; {bnd['flops'] / ms / 1e9:.1f} TFLOP/s), plain "
+                    f"{times['plain_ms']:.2f} ms, bound {bnd['bound_ms']:.3f} ms, f32 FMA route "
+                    f"{times['earlier_ms']:.2f} ms  [{card}]")
+                if not ms < times["plain_ms"]:
                     raise RuntimeError(f"{tag}: the kernel is not faster than its plain version")
                 if shape == (2, 64000, 128):
-                    rec.update(ms=ms, plain_ms=plain, earlier_ms=earlier, **bnd)
+                    rec.update(**times, **bnd)
                 del x32, br32
         del x, xd, got, want, exact
     up_w, up_b = dec["ups.2.weight"], dec["ups.2.bias"]
@@ -501,13 +589,14 @@ def main() -> int:
         exact = K.up_mrf_stage_plain(ub, *args, K.F32)
         record("up_mrf_stage", compare(tag, got, want, exact, False))
         if tu == 64000:
-            ms = cuda_ms(lambda: K.up_mrf_stage(ub, args[0], args[1], 4, 2, 1, brr, ks, dil,
-                                                packed=up_packed), 3)
-            plain = cuda_ms(lambda: K.up_mrf_stage_plain(ub, *args, K.BF16), 3)
+            times = kernel_times(lambda: K.up_mrf_stage(ub, args[0], args[1], 4, 2, 1, brr, ks,
+                                                        dil, packed=up_packed),
+                                 lambda: K.up_mrf_stage_plain(ub, *args, K.BF16), 2)
+            ms, plain = times["ms"], times["plain_ms"]
             bnd = bound(mrf_flops(2, 2 * tu, 64, ks, len(dil)) + 2.0 * 4 * 128 * 64 * tu * 2,
                         [ub, got, args[0], *sum(brr, ())])
-            log(f"  {tag}: kernel {ms:.2f} ms, plain {plain:.2f} ms, bound "
-                f"{bnd['bound_ms']:.3f} ms  [{card}]")
+            log(f"  {tag}: kernel {ms:.3f} ms ({times['ms_min']:.3f}-{times['ms_max']:.3f}), "
+                f"plain {plain:.2f} ms, bound {bnd['bound_ms']:.3f} ms  [{card}]")
         del u, ub, got, want, exact
 
     # the WN stack: the 16 prior layers of the seeded weights. In bf16 a
@@ -553,21 +642,19 @@ def main() -> int:
         record("wn_stack", compare(f"wn_stack {tuple(x.shape)} x{len(enc_layers)} layers f32",
                                    got, want, want, True))
         if b == 32:
-            times = {}
-            for xd, pk in ((xb, packed), (x, pack_wn_stack(enc_layers, hidden, torch.float32,
-                                                           lpc, dev))):
-                ms = cuda_ms(lambda: wn_stack(xd, mask, enc_layers, hidden, lpc, pk), 5)
-                plain = cuda_ms(lambda: wn_stack_plain(xd, mask, enc_layers, hidden, lpc), 3)
-                times[xd.dtype] = ms, plain
-                log(f"  wn_stack {tuple(x.shape)} x{len(enc_layers)} layers "
-                    f"{'bf16' if xd.dtype == torch.bfloat16 else 'f32 (FMA route)'}: kernel "
-                    f"{ms:.3f} ms, plain {plain:.2f} ms  [{card}]")
-            ms, plain = times[torch.bfloat16]
-            if not ms < plain:
+            pk32 = pack_wn_stack(enc_layers, hidden, torch.float32, lpc, dev)
+            times = kernel_times(lambda: wn_stack(xb, mask, enc_layers, hidden, lpc, packed),
+                                 lambda: wn_stack_plain(xb, mask, enc_layers, hidden, lpc), 3,
+                                 earlier=lambda: wn_stack(x, mask, enc_layers, hidden, lpc, pk32))
+            log(f"  wn_stack {tuple(x.shape)} x{len(enc_layers)} layers bf16: kernel "
+                f"{times['ms']:.3f} ms ({times['ms_min']:.3f}-{times['ms_max']:.3f}, "
+                f"{card_span(times)}), plain {times['plain_ms']:.2f} ms, f32 FMA route "
+                f"{times['earlier_ms']:.3f} ms  [{card}]")
+            if not times["ms"] < times["plain_ms"]:
                 raise RuntimeError("wn_stack bf16: the kernel is not faster than its plain version")
             n_l = len(enc_layers)  # k=5 conv H -> 2H, then 1x1 to 2H (H in the last)
             flops = 2.0 * b * t * hidden * hidden * (12 * n_l - 1)
-            records["wn_stack"].update(ms=ms, plain_ms=plain, earlier_ms=times[torch.float32][0],
+            records["wn_stack"].update(**times,
                                        **bound(flops, [xb, mask, xb, *sum(enc_layers, ())]))
         del x, xb, carry, skip, got, want, exact
 
@@ -598,12 +685,17 @@ def main() -> int:
             g = (None if gshape is None else
                  torch.from_numpy(rng.normal(0, 1, gshape).astype(np.float32)).to(dev, dt))
             rec, got = check_gate(x, g)
-            if gshape == (32, 1, 384) and dt == torch.bfloat16:
-                rec["ms"] = cuda_ms(lambda: fused_gate(x, g), 20)
-                rec["plain_ms"] = cuda_ms(lambda: fused_gate_plain(x, g), 20)
-                rec.update(bound(12.0 * got.numel(), [x, g, got]))
-                log(f"  fused_gate {shape} bf16: kernel {rec['ms']:.4f} ms, plain "
-                    f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms  [{card}]")
+            if shape == (32, 1000, 384) and dt == torch.bfloat16:
+                # the events' time of 20 back-to-back launches includes what the host
+                # spends launching them; the profiler's card time does not
+                times = kernel_times(lambda: fused_gate(x, g), lambda: fused_gate_plain(x, g), 20)
+                bnd = bound(12.0 * got.numel(), [x, got] if g is None else [x, g, got])
+                events = span((times["ms"], times["ms_min"], times["ms_max"]))
+                log(f"  fused_gate {shape} g {gshape} bf16: kernel {events} ms, "
+                    f"{card_span(times)} ms, "
+                    f"plain {times['plain_ms']:.4f} ms, bound {bnd['bound_ms']:.4f} ms  [{card}]")
+                if g is not None:
+                    rec.update(**times, **bnd)
 
     # the MRF branch backward at the training shapes (B = 16 segments of 32
     # frames) and a ragged length. The replay (x_j, h_j) is held to the plain
@@ -612,6 +704,10 @@ def main() -> int:
     # derivative everywhere. f32: replay within 1e-4 and gradients within 1e-3
     # of their largest entry. bf16: through `compare`, with the f32 plain
     # version on the same bf16 values (and the same replay) as `exact`.
+    # A bf16 x runs the tensor-core kernels alone (a replay and a dx step per
+    # residual pair and one weight-gradient launch per branch), an f32 x the
+    # FMA body alone (two per pair); at the four training shapes the first must
+    # beat the second, timed in turns.
     parts = ("dx", "dw1", "db1", "dw2", "db2")
     for stage, shape in ((0, (16, 256, 256)), (1, (16, 2048, 128)), (2, (16, 4096, 64)),
                          (3, (16, 8192, 32)), (2, (2, 1237, 64))):
@@ -621,8 +717,13 @@ def main() -> int:
             xd, gd, br = x.to(dt), g.to(dt), stage_branches(stage, dt)
             for branch, k in zip(br, ks):
                 tag = f"mrf_branch_bwd {shape} k={k} {str(dt)[6:]}"
+                before = dict(K.LAUNCHES)
                 dx, dws, replay = mrf_branch_bwd(xd, gd, branch, k, dil, with_replay=True)
                 torch.cuda.synchronize()
+                went = {n: c - before[n] for n, c in K.LAUNCHES.items() if c != before[n]}
+                if went != ({"mrf_branch_bwd": 2 * len(dil) + 1} if dt == torch.bfloat16
+                            else {"mrf_branch_bwd_fma": 2 * len(dil)}):
+                    raise RuntimeError(f"{tag}: launched {went}")
                 wdx, wdws = mrf_branch_bwd_plain(xd, gd, branch, k, dil, replay)
                 got = list(zip(parts, (dx, *dws), (wdx, *wdws)))
                 want_replay = branch_replay_plain(xd, branch, k, dil)
@@ -644,19 +745,38 @@ def main() -> int:
                     for (part, a, w), e in zip(got, (edx, *edws)):
                         record("mrf_branch_bwd",
                                compare(f"{tag} {part}", a, w, e, False, ulp_slack=True))
-            if shape == (16, 2048, 128) and dt == torch.bfloat16:
-                rec = records["mrf_branch_bwd"]
-                rec["ms"] = cuda_ms(lambda: [mrf_branch_bwd(xd, gd, b_, k, dil)
-                                             for b_, k in zip(br, ks)], 3)
-                rec["plain_ms"] = cuda_ms(lambda: [mrf_branch_bwd_plain(xd, gd, b_, k, dil)
-                                                   for b_, k in zip(br, ks)], 3)
-                # per branch: 5 replayed convs, 6 dx convs, 6 dw products
-                flops = 17 / 6 * mrf_flops(*shape, ks, len(dil))
-                rec.update(bound(flops, [xd, gd] * len(ks) + [xd] * len(ks)
-                                 + [a for b_ in br for a in b_] * 2))
-                log(f"  mrf_branch_bwd {shape} bf16, the three branches: kernel {rec['ms']:.2f} "
-                    f"ms, plain {rec['plain_ms']:.2f} ms, bound {rec['bound_ms']:.3f} ms  "
-                    f"[{card}]")
+        if shape[0] == 16:
+            # the three branches in bf16 against the FMA route on the f32 inputs;
+            # at the record's shape the plain version too
+            br32 = stage_branches(stage, torch.float32)
+
+            def run(xx, gg, bb, fn=mrf_branch_bwd):
+                return lambda: [fn(xx, gg, b_, k, dil) for b_, k in zip(bb, ks)]
+
+            kern, fma = run(xd, gd, br), run(x, g, br32)
+            if shape == (16, 2048, 128):
+                times = kernel_times(kern, run(xd, gd, br, mrf_branch_bwd_plain), 1, earlier=fma,
+                                     profile=True)
+            else:
+                legs = time_legs({"kernel": kern, "earlier": fma}, 1)
+                times = {"ms": legs["kernel"][0], "ms_min": legs["kernel"][1],
+                         "ms_max": legs["kernel"][2], "earlier_ms": legs["earlier"][0]}
+                times["card_ms"], times["card_ms_min"], times["card_ms_max"] = card_ms(kern)
+            # per branch: 5 replayed convs, 6 dx convs, 6 dw products
+            bnd = bound(17 / 6 * mrf_flops(*shape, ks, len(dil)),
+                        [xd, gd] * len(ks) + [xd] * len(ks) + [a for b_ in br for a in b_] * 2)
+            log(f"  mrf_branch_bwd {shape} bf16, the three branches: kernel {times['ms']:.3f} ms "
+                f"({times['ms_min']:.3f}-{times['ms_max']:.3f}, {card_span(times)}; "
+                f"{bnd['flops'] / times['ms'] / 1e9:.1f} TFLOP/s), f32 FMA route "
+                f"{times['earlier_ms']:.2f} ms, plain {times.get('plain_ms')}, bound "
+                f"{bnd['bound_ms']:.3f} ms  [{card}]")
+            if not times["ms"] < times["earlier_ms"]:
+                raise RuntimeError(f"mrf_branch_bwd {shape}: not faster than the FMA route")
+            # the card time by kernel: replay, dx step, weight gradients, torch's own ops
+            profile_step(f"mrf_branch_bwd {shape} bf16", kern, card, 10)
+            if shape == (16, 2048, 128):
+                records["mrf_branch_bwd"].update(**times, **bnd)
+            del br32
         del x, g, xd, gd, dx, dws, wdx, wdws, replay, want_replay, steps, got
 
     # 4. the slice at full width
@@ -842,10 +962,14 @@ def main() -> int:
     torch.cuda.synchronize()
     launches_ab = dict(K.LAUNCHES)
     log(f"training-kernel A/B: launches {launches_ab}")
-    per_step = len(ks) * len(dil)  # forward: one kernel per pair; backward: two
+    # forward: one kernel per pair; backward, per branch: a replay and a dx step
+    # per pair and one weight-gradient launch; no FMA body in bf16
+    want = {"mrf_stage_unpacked": len(ks) * len(dil),
+            "mrf_branch_bwd": len(ks) * (2 * len(dil) + 1)}
     for row in ab_rows:
-        if row["launches"] != {"mrf_stage_unpacked": per_step, "mrf_branch_bwd": 2 * per_step}:
-            raise RuntimeError(f"A/B stage {row['stage']}: launches {row['launches']}")
+        if row["launches"] != want:
+            raise RuntimeError(f"A/B stage {row['stage']}: launches {row['launches']}, expected "
+                               f"{want} (an *_fma launch is a bf16 call off the tensor cores)")
         if not all(np.isfinite(row[key]) for key in ("autograd_ms", "kernel_ms", "loss_kernel",
                                                      "dx_rel_rms", "dw_rel_rms",
                                                      "autograd_busy_ms", "kernel_busy_ms")):
@@ -901,8 +1025,9 @@ def main() -> int:
          "replaces": "scripts/exp_mrf_variants.py:159",
          "launches": launches_var["mrf_stage_variant"], **records["mrf_stage_variant"]},
     ]
-    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "tflops", "earlier_ms"}
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "ms_min",
+            "ms_max", "rounds", "card_ms", "card_ms_min", "card_ms_max", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "tflops", "earlier_ms"}
     for rec in kernels:
         rec["tflops"] = rec.pop("flops") / rec["ms"] / 1e9
         rec.setdefault("earlier_ms", None)

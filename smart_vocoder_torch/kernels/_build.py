@@ -47,9 +47,13 @@ _SIGNATURES = {
     "svt_wn_stack": [_P] * 7 + [_I] * 7 + [_P],
     # the same, all f32, w as [layer][w_in, w_rs], without last_skip_only
     "svt_wn_stack_fma": [_P] * 7 + [_I] * 6 + [_P],
-    # x, g, dx, xs, hs, dtmp, w1, b1, w2, b2, w1f, w2f, dw1, db1, dw2, db2, B, T, C,
-    # tile, k, np, d0..d2, is_bf16, n_launched (out), stream
-    "svt_mrf_branch_bwd": [_P] * 16 + [_I] * 10 + [ctypes.POINTER(_I), _P],
+    # x, g, dx, xs, hs, dys, dhs, wf (packed bf16 tiles), b1, b2, wb (packed flipped
+    # tiles), zero, dw1, db1, dw2, db2, B, T, C, tile_r, tile_d, k, np, d0..d2, splits,
+    # n_launched (out), stream
+    "svt_mrf_branch_bwd": [_P] * 16 + [_I] * 11 + [ctypes.POINTER(_I), _P],
+    # x, g, dx, xs, hs, dtmp, w1, b1, w2, b2, w1f, w2f, dw1, db1, dw2, db2 (all f32), B, T,
+    # C, tile, k, np, d0..d2, n_launched (out), stream
+    "svt_mrf_branch_bwd_fma": [_P] * 16 + [_I] * 9 + [ctypes.POINTER(_I), _P],
 }
 
 SMEM_LIMIT = 232448  # bytes of dynamic shared memory a Hopper block may use
@@ -69,10 +73,10 @@ def pick_tile(smem_bytes) -> int:
 LAUNCHES: dict[str, int] = {"mrf_stage": 0, "up_mrf_stage": 0, "mrf_stage_unpacked": 0,
                             "wn_stack": 0, "fused_gate": 0, "mrf_branch_bwd": 0,
                             "mrf_stage_variant": 0,
-                            # the f32 FMA bodies of five of the above (true-f32 weights)
+                            # the f32 FMA bodies of six of the above (true-f32 weights)
                             "mrf_stage_fma": 0, "up_mrf_stage_fma": 0,
                             "mrf_stage_variant_fma": 0, "mrf_stage_unpacked_fma": 0,
-                            "wn_stack_fma": 0}
+                            "wn_stack_fma": 0, "mrf_branch_bwd_fma": 0}
 
 
 def reset_launch_counts() -> None:

@@ -1,315 +1,407 @@
-// Backward of one ResBlock1 branch of the MRF stage for Hopper (sm_90a), plain
-// C interface.
+// Backward of one ResBlock1 branch of the MRF stage on Hopper's tensor cores
+// (sm_90a), plain C interface.
 //
 // svt_mrf_branch_bwd replaces smart_vocoder_tpu/kernels/mrf_train.py:
-// mrf_branch_bwd (_branch_bwd_kernel): given the stage input x and the
-// cotangent g of one branch's output, it returns dx and the gradients of the
-// branch's 2 * n_pairs convolutions (dw1, db1, dw2, db2, accumulated in f32).
-// It computes the function of the TPU kernel, not its block structure.
+// mrf_branch_bwd (_branch_bwd_kernel) for a bf16 x: given the stage input x
+// and the cotangent g of one branch's output, it returns dx and the gradients
+// of the branch's 2 * n_pairs convolutions (dw1, db1, dw2, db2, summed in
+// f32). Every product here is of two bf16 values, which the tensor cores form
+// exactly, so only the order of summation differs from the plain version. An
+// f32 x keeps the FMA body of mrf_train_fma.cu (svt_mrf_branch_bwd_fma).
 //
-// The forward saves only (x, weights), so the backward first replays the
-// chain. The TPU kernel replays a whole branch in VMEM over a tile with a
-// ~22-radius halo; a Hopper block has 227 KB of shared memory, where x, g,
-// three x_j, three h_j and the gradients of such a tile do not fit at C = 128.
-// So, like the forward (mrf_pair_kernel in mrf_stage_fma.cu), the work is cut per
-// residual pair x_{j+1} = x_j + c2(lrelu(h_j)), h_j = c1_d(lrelu(x_j)), each
-// with its own small halo:
+// The forward saves only (x, weights), so the chain is replayed. The work is
+// cut per residual pair x_{j+1} = x_j + c2(lrelu(h_j)), h_j = c1_d(lrelu(x_j))
+// (r = (k - 1) / 2), into 2 n + 1 launches:
 //
-//   replay_pair_kernel, j = 0 .. n-1: recomputes h_j (and x_{j+1}, except after
-//     the last pair) from x_j and writes them to scratch that the wrapper
-//     allocates. Nothing is kept from the forward pass.
-//   bwd_pair_kernel, j = n-1 .. 0: from the cotangent dxb of x_{j+1},
-//       dy = dxb                           (zero outside [0, T))
-//       dw2[t] += lrelu(h_j)[. + t - r2]^T dy,   db2 += sum dy
-//       dq = conv(dy, flip(w2)^T),  dh = dq * dlrelu(h_j)   (zero outside [0, T))
-//       dw1[t] += lrelu(x_j)[. + (t - r2) d]^T dh,  db1 += sum dh
-//       dp = conv_d(dh, flip(w1)^T),  dxb' = dxb + dp * dlrelu(x_j)
-//     over a tile of rows; dy carries a halo of r1 + r2 = r2 (d + 1) rows and dh
-//     one of r1 = r2 d (at most 30 and 25 rows for k = 11, d = 5). Only the
-//     tile's own rows enter dw and db, so no row is counted twice.
+//   replay, j = 0 .. n-1: the unpacked stage's pair kernel (mrf_pair.cuh,
+//     REPLAY) writes h_j over its tile and x_{j+1} (not after the last pair);
+//   dx, j = n-1 .. 0 (mrf_pair_bwd_kernel): the pair kernel's body run on
+//     cotangents. From dy = dxb, the cotangent of x_{j+1}, over the tile and
+//     a halo of r(d + 1) rows (raw, zero outside [0, T)):
+//       dq = conv(dy, flip(w2)^T)              over tile + 2rd rows
+//       dh = bf16(bf16(dq) * dlrelu(h_j))     zero outside [0, T)
+//       dp = conv_d(dh, flip(w1)^T)            over the tile
+//       dxb' = bf16(dxb + bf16(bf16(dp) * dlrelu(x_j)))
+//     Both convs are pair_conv over the ring of flipped, transposed weight
+//     tiles (packed once per call by kernels/mrf_train.py); dh's own rows also
+//     go to a scratch tensor for the weight gradients;
+//   dw (mrf_dw_mma_kernel), one launch for the branch's 2 n convs:
+//     dw[t] = sum over all B * T rows of lrelu(a)[row + (t - r) dil]^T grad[row]
+//     with (a, grad, dil) = (h_j, dy_j, 1) for conv2 and (x_j, dh_j, d_j) for
+//     conv1, and db = the column sums of grad.
 //
-// Blocks run in parallel, so where the TPU grid accumulates dw/db in revisited
-// VMEM blocks, each block here adds its partial sums with f32 atomics into
-// buffers the wrapper zeroed: one atomic per weight, tap and block (about
-// 1/64-1/128 of the block's FMAs). The order of those additions changes from
-// run to run, so dw/db are reproducible only to f32 summation order.
+// What bounds it on the card: arithmetic. A stage's backward is 714 C^2 T B
+// FLOP (17/6 of its forward: 5 replayed convs, 6 dx convs and 6 weight
+// products a branch), against tensors of a few MB. The replay and dx run the
+// unpacked stage's GEMMs (wgmma from 64 channels, mma.sync at 32; one pass of
+// all C columns). Their tile is the largest of 240, 128, 64, 32 whose GEMM
+// rows (tile + 2rd in dx) the warpgroups cover and whose buffers fit:
+// kernels/mrf.py:unpacked_tile for the replay, kernels/mrf_train.py:
+// branch_bwd_tile for dx, which holds dy over tile + 2r(d + 1) rows, dh over
+// tile + 2rd and the ring (227,040 B at C = 256, k = 11, d = 5, tile 64).
 //
-// Rounding points (bf16 x): every replayed conv output, dq, dp, dq * dlrelu(h)
-// and dxb + dp * dlrelu(x) are rounded to bf16, as the TPU kernel's casts do;
-// the dw/db products take those bf16 values and sum in f32. dlrelu(v) is 1 for
-// v > 0, else the slope (bf16(0.1) for a bf16 x): v == 0 takes the slope.
+// The weight gradients are a GEMM with K = B * T, the time axis: M = Cin,
+// N = Cout per tap, both operands K-major in shared memory, so both go through
+// `ldmatrix.trans` (a tap's row shift is an address) into `mma.sync.m16n8k16`;
+// lrelu is applied to the A fragments in registers. A block owns one (conv,
+// tap, 64 x 64 output tile) and one of `splits` ranges of K (32 x 32 and four
+// warps on K at C = 32), streamed in chunks of rows through a 3-slot cp.async
+// ring that zero-fills rows outside the sequence; the split count is chosen by
+// the wrapper (kernels/mrf_train.py:dw_splits) to fill the card where the dx
+// grid cannot (16 batch rows x 4 tiles at (16, 256, 256)). Each block adds its
+// partial tile with one f32 atomic per element, so dw and db repeat only to f32
+// summation order from run to run.
 //
-// What bounds it on the card: arithmetic. One branch backward is the replay
-// (5/6 of a forward), the dx convs and the dw products, ~2.8x the forward's
-// FLOPs, against tensors of a few MB. All of it runs as f32 FMA loops on the
-// CUDA cores (conv_rows for the convs, an 8 x 8 register tile per thread for
-// the per-tap products); tensor cores are later work.
+// Rounding points: every replayed conv output, dq, dp, dq * dlrelu(h) and
+// dxb + dp * dlrelu(x) are rounded to bf16; dlrelu(v) is 1 for v > 0, else
+// bf16(0.1) (v == 0 takes the slope).
+// Registers and shared memory per instantiation: PERF.md §6.
 
-#include "mrf_common.cuh"
+#include "mrf_pair.cuh"
 
 namespace {
 
-// d/dv max(v, slope v): 1 for v > 0, else the slope (in x's own precision).
-__device__ __forceinline__ float dleaky(float v, int mode) {
-  return v > 0.f ? 1.f : (mode == kBF16 ? rbf(0.1f) : 0.1f);
+// Shared memory of one dx block, in bytes: dy over tile + 2(rd + r) rows, dh
+// over tile + 2rd, and the ring (kernels/mrf_train.py:branch_bwd_smem_bytes
+// mirrors it).
+template <int C>
+constexpr size_t bwd_smem_bytes(int tile, int h, int d) {
+  using G = PairGeometry<C>;
+  return static_cast<size_t>(2 * tile + 2 * (h * d + h) + 2 * h * d) * (C + kPad) * 2 +
+         static_cast<size_t>(G::STAGES) * G::KT * (C + kPad) * 2;
 }
 
-// Rows [row0, row0 + rows) of the haloed (rows x C) tile of `src` that starts at
-// global row g0, as conv operands lrelu(v) (or v itself with `raw`), zeros
-// outside [0, T).
-template <int C, typename St>
-__device__ __forceinline__ void load_tile(St* __restrict__ dst, const void* __restrict__ src,
-                                          size_t base, int g0, int rows, int T, int mode,
-                                          bool raw) {
-  constexpr int S = C + 1;
-  constexpr bool kBf = std::is_same<St, __nv_bfloat16>::value;
-  for (int i = threadIdx.x; i < rows * C; i += kThreads) {
-    const int r = i / C, c = i % C, g = g0 + r;
-    const float v =
-        (g >= 0 && g < T) ? load_act(src, base + static_cast<size_t>(g) * C + c, kBf) : 0.f;
-    dst[r * S + c] = from_f<St>(raw ? v : operand(v, mode));
-  }
-}
+__device__ __forceinline__ float dleaky_bf16(float v) { return v > 0.f ? 1.f : rbf(0.1f); }
 
-// Replays one residual pair: writes h_j over the tile's rows and, unless
-// `last`, x_{j+1}. Same arithmetic and rounding as mrf_pair_kernel.
-template <int C, typename St>
-__global__ void __launch_bounds__(kThreads)
-    replay_pair_kernel(const void* __restrict__ xin, void* __restrict__ hout,
-                       void* __restrict__ xout, const float* __restrict__ w1,
-                       const float* __restrict__ b1, const float* __restrict__ w2,
-                       const float* __restrict__ b2, int T, int tile, int k, int d, int last) {
-  constexpr int S = C + 1;
-  constexpr bool kBf = std::is_same<St, __nv_bfloat16>::value;
-  constexpr int mode = kBf ? kBF16 : kF32;
-  extern __shared__ __align__(16) unsigned char train_smem[];
-  const int r2 = (k - 1) / 2, r1 = r2 * d;
-  const int H2 = last ? 0 : r2;  // rows of h_j beyond the tile that conv2 reads
-  const int HA = r1 + H2;
-  St* opA = reinterpret_cast<St*>(train_smem);  // lrelu(x_j), rows [0, tile + 2*HA)
-  St* opB = opA + (tile + 2 * HA) * S;          // lrelu(h_j), rows [r1, tile + 2*HA - r1)
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * tile;
-  const int g0 = t0 - HA;  // global row of local row 0
-  const size_t base = static_cast<size_t>(b) * T * C;
-  load_tile<C, St>(opA, xin, base, g0, tile + 2 * HA, T, mode, false);
-  __syncthreads();
-  conv_rows<C>(opA, w1, b1, k, d, r1, tile + 2 * HA - r1, [&](int r, int c, float v) {
-    const int g = g0 + r;
-    const bool inside = g >= 0 && g < T;
-    const float xt = inside ? store(v, mode) : 0.f;
-    opB[(r - r1) * S + c] = from_f<St>(operand(xt, mode));
-    if (inside && r >= HA && r < HA + tile) {
-      store_out(hout, base + static_cast<size_t>(g) * C + c, xt, kBf);
-    }
-  });
-  if (last) return;
-  __syncthreads();
-  const int rows = min(tile, T - t0);
-  conv_rows<C>(
-      opB, w2, b2, k, 1, HA, HA + rows,
-      [&](int r, int c, float v) {
-        const size_t idx = base + static_cast<size_t>(g0 + r) * C + c;
-        const float nx = store(store(v, mode) + load_act(xin, idx, kBf), mode);
-        store_out(xout, idx, nx, kBf);
-      },
-      r1);
-}
-
-// gw[t][ci][co] += sum over the tile's rows r of A[r + t*dil][ci] * D[d_row0 + r][co]
-// for every tap t: the weight gradient of one conv from its operand tile A
-// (local row 0 = the first row tap 0 reads) and its output cotangent D.
-// Each thread owns a TI x TI register tile of one tap's C x C matrix, strided
-// over channels so a warp reads consecutive shared-memory words; where C x C
-// has fewer tiles than the block has threads, the rows are split among
-// thread groups. Every thread ends each tap with one atomic per element.
-template <int C, typename St>
-__device__ __forceinline__ void dw_taps(const St* __restrict__ A, int dil,
-                                        const St* __restrict__ D, int d_row0, int rows, int k,
-                                        float* __restrict__ gw) {
-  constexpr int S = C + 1;
-  constexpr int TI = C >= 64 ? 8 : 4;
-  constexpr int N = C / TI;  // register tiles per side
-  constexpr int NT = N * N;
-  constexpr int SLOTS = NT < kThreads ? NT : kThreads;
-  constexpr int RS = kThreads / SLOTS;  // row splits
-  constexpr int PASSES = NT / SLOTS;
-  const int slot = threadIdx.x % SLOTS, rs = threadIdx.x / SLOTS;
-  for (int t = 0; t < k; ++t) {
-    const St* At = A + t * dil * S;
-    float* gt = gw + static_cast<size_t>(t) * C * C;
-    for (int pass = 0; pass < PASSES; ++pass) {
-      const int tix = pass * SLOTS + slot;
-      const int jg = tix % N, ig = tix / N;
-      float acc[TI][TI];
-#pragma unroll
-      for (int i = 0; i < TI; ++i) {
-#pragma unroll
-        for (int j = 0; j < TI; ++j) acc[i][j] = 0.f;
-      }
-      for (int r = rs; r < rows; r += RS) {
-        float a[TI], dv[TI];
-#pragma unroll
-        for (int i = 0; i < TI; ++i) a[i] = to_f(At[r * S + ig + i * N]);
-#pragma unroll
-        for (int j = 0; j < TI; ++j) dv[j] = to_f(D[(d_row0 + r) * S + jg + j * N]);
-#pragma unroll
-        for (int i = 0; i < TI; ++i) {
-#pragma unroll
-          for (int j = 0; j < TI; ++j) acc[i][j] = fmaf(a[i], dv[j], acc[i][j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < TI; ++i) {
-#pragma unroll
-        for (int j = 0; j < TI; ++j) {
-          atomicAdd(gt + (ig + i * N) * C + jg + j * N, acc[i][j]);
-        }
-      }
-    }
-  }
-}
-
-// gdb[c] += sum over rows [row0, row0 + rows) of D[.][c].
-template <int C, typename St>
-__device__ __forceinline__ void col_sums(const St* __restrict__ D, int row0, int rows,
-                                         float* __restrict__ gdb) {
-  constexpr int S = C + 1;
-  constexpr int G = kThreads / C;  // row groups
-  const int c = threadIdx.x % C, grp = threadIdx.x / C;
-  float s = 0.f;
-  for (int r = grp; r < rows; r += G) s += to_f(D[(row0 + r) * S + c]);
-  atomicAdd(gdb + c, s);
-}
-
-// Backward of one residual pair over one tile (see the file comment).
-// w1f / w2f are the tap-flipped, in/out-transposed weights.
-template <int C, typename St>
-__global__ void __launch_bounds__(kThreads)
-    bwd_pair_kernel(const void* __restrict__ din, const void* __restrict__ xj,
-                    const void* __restrict__ hj, void* __restrict__ dout,
-                    const float* __restrict__ w1f, const float* __restrict__ w2f,
-                    float* __restrict__ dw1, float* __restrict__ db1, float* __restrict__ dw2,
-                    float* __restrict__ db2, int T, int tile, int k, int d) {
-  constexpr int S = C + 1;
-  constexpr bool kBf = std::is_same<St, __nv_bfloat16>::value;
-  constexpr int mode = kBf ? kBF16 : kF32;
-  extern __shared__ __align__(16) unsigned char train_smem[];
-  const int r2 = (k - 1) / 2, r1 = r2 * d, HD = r1 + r2;
-  // bufA: dy over global rows [t0 - HD, t0 + tile + HD); later lrelu(x_j) over
-  //       [t0 - r1, t0 + tile + r1).
-  // bufB: lrelu(h_j) over [t0 - r2, t0 + tile + r2); later dh over
-  //       [t0 - r1, t0 + tile + r1).
-  St* bufA = reinterpret_cast<St*>(train_smem);
-  St* bufB = bufA + (tile + 2 * HD) * S;
+// The dx step of pair j over one time tile (see the file comment). w: the
+// pair's packed tiles, flip(w2)^T then flip(w1)^T; zero: C zero biases.
+template <int C>
+__global__ void __launch_bounds__(PairGeometry<C>::THREADS, 1)
+    mrf_pair_bwd_kernel(const __nv_bfloat16* __restrict__ din,
+                        const __nv_bfloat16* __restrict__ xj,
+                        const __nv_bfloat16* __restrict__ hj, __nv_bfloat16* __restrict__ dout,
+                        __nv_bfloat16* __restrict__ dh, const __nv_bfloat16* __restrict__ w,
+                        const float* __restrict__ zero, int T, int tile, int k, int d) {
+  constexpr int SW = C + kPad;
+  using G = PairGeometry<C>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int h = (k - 1) / 2, hd = h * d;
+  const int HA = hd + h;  // dy rows beyond the tile on each side
+  const int LA = tile + 2 * HA, LB = tile + 2 * hd;
+  __nv_bfloat16* opA = reinterpret_cast<__nv_bfloat16*>(smem);  // dy, global rows t0 - HA + r
+  __nv_bfloat16* opB = opA + LA * SW;                            // dh, global rows t0 - hd + r
+  WeightRing ring{w, smem_u32(opB + LB * SW), 2 * G::tiles(k), G::kWide ? 2 * G::tiles(k) : 0,
+                  0};
+  ring_start<C, G::KT, G::kWide || C == kWgmmaC, G::THREADS, G::STAGES>(ring);
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * tile;
   const size_t base = static_cast<size_t>(b) * T * C;
-
-  load_tile<C, St>(bufA, din, base, t0 - HD, tile + 2 * HD, T, mode, true);
-  load_tile<C, St>(bufB, hj, base, t0 - r2, tile + 2 * r2, T, mode, false);
-  __syncthreads();
-  // rows at or beyond T hold zeros in dy, so the ragged tile needs no clipping
-  dw_taps<C, St>(bufB, 1, bufA, HD, tile, k, dw2);
-  col_sums<C, St>(bufA, HD, tile, db2);
-  __syncthreads();
-
-  const int g0 = t0 - HD;
-  conv_rows<C>(bufA, w2f, nullptr, k, 1, r2, tile + 2 * HD - r2, [&](int r, int c, float v) {
-    const int g = g0 + r;
-    float dh = 0.f;
+  for (int i = threadIdx.x; i < LA * (C / 8); i += G::THREADS) {
+    const int r = i / (C / 8), c = (i % (C / 8)) * 8, g = t0 - HA + r;
+    uint4 raw = make_uint4(0, 0, 0, 0);
     if (g >= 0 && g < T) {
-      const float h = load_act(hj, base + static_cast<size_t>(g) * C + c, kBf);
-      dh = store(store(v, mode) * dleaky(h, mode), mode);
+      raw = *reinterpret_cast<const uint4*>(din + base + static_cast<size_t>(g) * C + c);
     }
-    bufB[(r - r2) * S + c] = from_f<St>(dh);
+    *reinterpret_cast<uint4*>(opA + r * SW + c) = raw;
+  }
+  // dq over rows [t0 - rd, t0 + tile + rd); the ring's barrier orders the fill
+  pair_conv<C>(ring, smem_u32(opA), h, LB, k, 1, zero, [&](int rr, int c, float v0, float v1) {
+    const int g = t0 - hd + rr;
+    float o0 = 0.f, o1 = 0.f;
+    if (g >= 0 && g < T) {
+      const size_t idx = base + static_cast<size_t>(g) * C + c;
+      const float2 hv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(hj + idx));
+      o0 = rbf(rbf(v0) * dleaky_bf16(hv.x));
+      o1 = rbf(rbf(v1) * dleaky_bf16(hv.y));
+      if (rr >= hd && rr < hd + tile) {
+        *reinterpret_cast<__nv_bfloat162*>(dh + idx) = __floats2bfloat162_rn(o0, o1);
+      }
+    }
+    *reinterpret_cast<__nv_bfloat162*>(opB + rr * SW + c) = __floats2bfloat162_rn(o0, o1);
   });
-  __syncthreads();
-  load_tile<C, St>(bufA, xj, base, t0 - r1, tile + 2 * r1, T, mode, false);
-  __syncthreads();
-  dw_taps<C, St>(bufA, d, bufB, r1, tile, k, dw1);
-  col_sums<C, St>(bufB, r1, tile, db1);
-
+  // dp over the tile's valid rows: output row rr reads dh rows rr + t d
   const int rows = min(tile, T - t0);
-  conv_rows<C>(bufB, w1f, nullptr, k, d, r1, r1 + rows, [&](int r, int c, float v) {
-    const size_t idx = base + static_cast<size_t>(t0 + r - r1) * C + c;
-    const float dp = store(v, mode) * dleaky(load_act(xj, idx, kBf), mode);
-    store_out(dout, idx, store(load_act(din, idx, kBf) + store(dp, mode), mode), kBf);
+  pair_conv<C>(ring, smem_u32(opB), hd, rows, k, d, zero, [&](int rr, int c, float v0, float v1) {
+    const size_t idx = base + static_cast<size_t>(t0 + rr) * C + c;
+    const float2 dy = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(din + idx));
+    const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xj + idx));
+    *reinterpret_cast<__nv_bfloat162*>(dout + idx) =
+        __floats2bfloat162_rn(rbf(dy.x + rbf(rbf(v0) * dleaky_bf16(xv.x))),
+                              rbf(dy.y + rbf(rbf(v1) * dleaky_bf16(xv.y))));
   });
 }
 
-struct BranchBwdArgs {
-  const void *x, *g;
-  void *dx, *xs, *hs, *dtmp;
-  const float *w1, *b1, *w2, *b2, *w1f, *w2f;
+// The weight-gradient GEMM's block by channel count (kernels/mrf_train.py:
+// dw_geometry mirrors it): a TM x TM output tile, chunks of KC rows, WK of the
+// four warps splitting a chunk's rows (the others its 32 x 32 warp tiles).
+template <int C>
+struct DwGeometry {
+  static constexpr int TM = C >= 64 ? 64 : 32;
+  static constexpr int KC = C >= 64 ? 64 : 128;
+  static constexpr int WK = C >= 64 ? 1 : 4;
+  static constexpr int THREADS = 128;
+  static constexpr int STAGES = 3;
+  static constexpr int TILES = (C / TM) * (C / TM);  // output tiles of one tap
+  static constexpr int SA = TM + kPad;               // row stride of a chunk, elements
+  static constexpr int SLOT = 2 * KC * SA * 2;       // bytes: the operand and grad chunks
+  static constexpr size_t smem() { return static_cast<size_t>(STAGES) * SLOT; }
+};
+
+// One conv of the weight-gradient launch: dw[t][ci][co] += sum over rows of
+// lrelu(a)[row + (t - r) dil][ci] * grad[row][co], db[co] += sum of grad[.][co].
+struct DwConv {
+  const __nv_bfloat16* a;
+  const __nv_bfloat16* grad;
+  float* dw;
+  float* db;
+  int dil;
+};
+constexpr int kMaxDwConvs = 6;  // two per residual pair, three pairs
+struct DwConvs {
+  DwConv c[kMaxDwConvs];
+};
+
+// 16 bytes from global to shared memory, or 16 zero bytes where !valid.
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// lrelu of two bf16 values, in bf16 (as put_lrelu's BF16 mode).
+__device__ __forceinline__ uint32_t lrelu_bf16x2(uint32_t v) {
+  __nv_bfloat162 t = *reinterpret_cast<__nv_bfloat162*>(&v);
+  t = __hmax2(t, __hmul2(t, __float2bfloat162_rn(0.1f)));
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+// Block (conv, tap, tile, split) of the weight gradients over R = B * T rows
+// of sequences of length T (see the file comment).
+template <int C>
+__global__ void __launch_bounds__(DwGeometry<C>::THREADS, 4)
+    mrf_dw_mma_kernel(const DwConvs convs, int R, int T, int k, int splits) {
+  using G = DwGeometry<C>;
+  constexpr int TM = G::TM, KC = G::KC, SA = G::SA, NTM = C / TM;
+  constexpr int MNW = 4 / G::WK;  // warps over the output tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  int bid = blockIdx.x;
+  const int split = bid % splits;
+  bid /= splits;
+  const int tile = bid % G::TILES;
+  bid /= G::TILES;
+  const int tap = bid % k, conv = bid / k;
+  DwConv cv = convs.c[0];
+#pragma unroll
+  for (int i = 1; i < kMaxDwConvs; ++i) {
+    if (i == conv) cv = convs.c[i];  // no dynamic index into the parameters
+  }
+  const int m0 = (tile % NTM) * TM, n0 = (tile / NTM) * TM;
+  const int shift = (tap - (k - 1) / 2) * cv.dil;
+  const int nq = (R + KC - 1) / KC;
+  const int q0 = static_cast<int>(static_cast<long long>(split) * nq / splits);
+  const int q1 = static_cast<int>(static_cast<long long>(split + 1) * nq / splits);
+  const uint32_t s0 = smem_u32(smem);
+
+  // chunk q (rows q*KC ..) into its slot: lrelu's operand rows shifted by the
+  // tap, zero outside [0, T) of their own sequence; the grad rows as they are
+  auto load = [&](int q) {
+    const uint32_t sa = s0 + ((q - q0) % G::STAGES) * G::SLOT, sg = sa + KC * SA * 2;
+    for (int i = threadIdx.x; i < KC * (TM / 8); i += G::THREADS) {
+      const int row = i / (TM / 8), pc = (i % (TM / 8)) * 8, rg = q * KC + row;
+      const bool live = rg < R;
+      const int b = live ? rg / T : 0;
+      const int rs = rg - b * T + shift;
+      const bool va = live && rs >= 0 && rs < T;
+      cp_async16_zfill(sa + (row * SA + pc) * 2,
+                       va ? cv.a + (static_cast<size_t>(b) * T + rs) * C + m0 + pc : cv.a, va);
+      cp_async16_zfill(sg + (row * SA + pc) * 2,
+                       live ? cv.grad + static_cast<size_t>(rg) * C + n0 + pc : cv.grad, live);
+    }
+  };
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wmn = warp % MNW, wk = warp / MNW;
+  const int wm = wmn % (TM / 32), wn = wmn / (TM / 32);
+  // db: the blocks of tap 0 and the first row of tiles sum their grad columns
+  const bool with_db = tap == 0 && m0 == 0;
+  constexpr int DG = G::THREADS / TM;  // row groups of the column sums
+  const int dcol = threadIdx.x % TM, dgrp = threadIdx.x / TM;
+  float dsum = 0.f;
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.f;
+    }
+  }
+  for (int q = q0; q < q0 + G::STAGES - 1; ++q) {
+    if (q < q1) load(q);
+    cp_async_commit();
+  }
+  for (int q = q0; q < q1; ++q) {
+    cp_async_wait<G::STAGES - 2>();
+    __syncthreads();  // chunk q landed; every warp is done with the slot reloaded next
+    if (q + G::STAGES - 1 < q1) load(q + G::STAGES - 1);
+    cp_async_commit();
+    const uint32_t sa = s0 + ((q - q0) % G::STAGES) * G::SLOT, sg = sa + KC * SA * 2;
+#pragma unroll
+    for (int i = 0; i < KC / 16 / G::WK; ++i) {
+      const int s = wk + i * G::WK;  // the k16 step of the chunk
+      // A (M = Cin, K = rows) from the K-major operand chunk: ldmatrix.trans of
+      // the 8 x 8 blocks (rows k 0-7 | 8-15) x (columns m 0-7 | 8-15)
+      uint32_t a[2][4], bf[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        ldsm_x4_trans(a[mi], sa + ((s * 16 + (lane & 7) + ((lane >> 4) << 3)) * SA + wm * 32 +
+                                   mi * 16 + ((lane >> 3) & 1) * 8) *
+                                      2);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[mi][e] = lrelu_bf16x2(a[mi][e]);
+      }
+      // B (K = rows, N = Cout) from the grad chunk, as the weight tiles are read
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        ldsm_x4_trans(bf[np],
+                      sg + ((s * 16 + (lane & 15)) * SA + wn * 32 + np * 16 + (lane >> 4) * 8) * 2);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          mma_bf16(acc[mi][2 * np], a[mi], bf[np][0], bf[np][1]);
+          mma_bf16(acc[mi][2 * np + 1], a[mi], bf[np][2], bf[np][3]);
+        }
+      }
+    }
+    if (with_db) {
+      const auto* gs = reinterpret_cast<const __nv_bfloat16*>(
+          smem + ((q - q0) % G::STAGES) * G::SLOT + KC * SA * 2);
+      for (int r = dgrp; r < KC; r += DG) dsum += __bfloat162float(gs[r * SA + dcol]);
+    }
+  }
+  // accumulator fragment: lane holds rows (Cin) g, g + 8 at columns (Cout) 2 tig, 2 tig + 1
+  const int g = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int ci = m0 + wm * 32 + mi * 16 + g + hf * 8;
+        float* p = cv.dw + (static_cast<size_t>(tap) * C + ci) * C + n0 + wn * 32 + nt * 8 +
+                   tig * 2;
+        atomicAdd(p, acc[mi][nt][2 * hf]);
+        atomicAdd(p + 1, acc[mi][nt][2 * hf + 1]);
+      }
+    }
+  }
+  if (with_db) atomicAdd(cv.db + n0 + dcol, dsum);
+}
+
+struct BwdArgs {
+  const __nv_bfloat16 *x, *g;
+  __nv_bfloat16 *dx, *xs, *hs, *dys, *dhs;
+  const __nv_bfloat16 *wf, *wb;
+  const float *b1, *b2, *zero;
   float *dw1, *db1, *dw2, *db2;
 };
 
-template <int C, typename St>
-int launch_branch_bwd(const BranchBwdArgs& a, int B, int T, int tile, int k, int np,
-                      const int* dil, int* n_launched, cudaStream_t s) {
-  const dim3 grid((T + tile - 1) / tile, B);
+template <int C>
+int launch_branch_bwd(const BwdArgs& a, int B, int T, int tile_r, int tile_d, int k, int np,
+                      const int* dil, int splits, int* n_launched, cudaStream_t s) {
+  using G = PairGeometry<C>;
+  using D = DwGeometry<C>;
   const size_t n = static_cast<size_t>(B) * T * C;  // elements of one (B, T, C) tensor
   const size_t wconv = static_cast<size_t>(k) * C * C;
-  const int r2 = (k - 1) / 2;
-  auto at = [n](void* p, int i) { return static_cast<void*>(static_cast<St*>(p) + i * n); };
-  // x_0 = x; x_1 .. x_{np-1} and h_0 .. h_{np-1} in the wrapper's scratch
-  auto state = [&](int j) { return j == 0 ? const_cast<void*>(a.x) : at(a.xs, j - 1); };
-
+  const int h = (k - 1) / 2;
+  // x_0 = x, x_1 .. in xs; the cotangent of x_{j+1}: g for the last pair, else dys[j]
+  auto state = [&](int j) { return j == 0 ? a.x : a.xs + (j - 1) * n; };
+  auto cot = [&](int j) { return j == np - 1 ? a.g : a.dys + j * n; };
+  auto went = [&]() {
+    const cudaError_t err = cudaGetLastError();
+    if (err == cudaSuccess) ++*n_launched;
+    return static_cast<int>(err);
+  };
+  if (tile_r + 2 * h > G::MAX_ROWS) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid_r((T + tile_r - 1) / tile_r, B);
   for (int j = 0; j < np; ++j) {
-    const int last = j == np - 1, r1 = r2 * dil[j], H2 = last ? 0 : r2;
-    const size_t smem = sizeof(St) * (2 * static_cast<size_t>(tile) + 2 * (r1 + H2) + 2 * H2) *
-                        (C + 1);
-    cudaFuncSetAttribute(replay_pair_kernel<C, St>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-    replay_pair_kernel<C, St><<<grid, kThreads, smem, s>>>(
-        state(j), at(a.hs, j), last ? nullptr : state(j + 1), a.w1 + j * wconv, a.b1 + j * C,
-        a.w2 + j * wconv, a.b2 + j * C, T, tile, k, dil[j], last);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    ++*n_launched;
+    const bool last = j == np - 1;
+    const size_t smem = smem_bytes<C>(tile_r, h, dil[j]);
+    cudaFuncSetAttribute(mrf_pair_mma_kernel<C, true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    mrf_pair_mma_kernel<C, true><<<grid_r, G::THREADS, smem, s>>>(
+        state(j), last ? nullptr : a.xs + j * n, nullptr, a.hs + j * n, a.wf + 2 * j * wconv,
+        a.b1 + j * C, a.b2 + j * C, T, tile_r, k, dil[j], last ? kHOnly : kState, 1);
+    if (const int err = went()) return err;
   }
-  const void* cur = a.g;
+  const dim3 grid_d((T + tile_d - 1) / tile_d, B);
   for (int j = np - 1; j >= 0; --j) {
-    const int r1 = r2 * dil[j];
-    void* dst = j == 0 ? a.dx : at(a.dtmp, (np - 1 - j) % 2);
-    const size_t smem = sizeof(St) * (2 * static_cast<size_t>(tile) + 2 * (r1 + r2) + 2 * r1) *
-                        (C + 1);
-    cudaFuncSetAttribute(bwd_pair_kernel<C, St>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    if (tile_d + 2 * h * dil[j] > G::MAX_ROWS) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = bwd_smem_bytes<C>(tile_d, h, dil[j]);
+    cudaFuncSetAttribute(mrf_pair_bwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
-    bwd_pair_kernel<C, St><<<grid, kThreads, smem, s>>>(
-        cur, state(j), at(a.hs, j), dst, a.w1f + j * wconv, a.w2f + j * wconv,
-        a.dw1 + j * wconv, a.db1 + j * C, a.dw2 + j * wconv, a.db2 + j * C, T, tile, k, dil[j]);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    ++*n_launched;
-    cur = dst;
+    mrf_pair_bwd_kernel<C><<<grid_d, G::THREADS, smem, s>>>(
+        cot(j), state(j), a.hs + j * n, j == 0 ? a.dx : a.dys + (j - 1) * n, a.dhs + j * n,
+        a.wb + 2 * j * wconv, a.zero, T, tile_d, k, dil[j]);
+    if (const int err = went()) return err;
   }
-  return 0;
+  DwConvs convs{};
+  for (int j = 0; j < np; ++j) {
+    convs.c[2 * j] = {a.hs + j * n, cot(j), a.dw2 + j * wconv, a.db2 + j * C, 1};
+    convs.c[2 * j + 1] = {state(j), a.dhs + j * n, a.dw1 + j * wconv, a.db1 + j * C, dil[j]};
+  }
+  cudaFuncSetAttribute(mrf_dw_mma_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(D::smem()));
+  const unsigned blocks = 2u * np * k * D::TILES * splits;
+  mrf_dw_mma_kernel<C><<<blocks, D::THREADS, D::smem(), s>>>(convs, B * T, T, k, splits);
+  return went();
 }
 
 }  // namespace
 
-// x, g: (B, T, C) in St (bf16 or f32); dx the same. xs: (np - 1, B, T, C), hs:
-// (np, B, T, C), dtmp: (2, B, T, C) scratch in St. w1, w2, w1f, w2f: (np, k, C, C)
-// f32, b1, b2: (np, C) f32. dw1, dw2: (np, k, C, C) f32 and db1, db2: (np, C) f32,
-// zeroed by the caller. n_launched: kernels launched, 2 * np when all went.
+// x, g, dx: bf16 (B, T, C). Scratch, bf16: xs (np - 1, B, T, C) the replayed
+// states, hs (np, ...) the conv1 outputs, dys (np - 1, ...) the cotangents of
+// x_1 .. x_{np-1}, dhs (np, ...) the dh of every pair. wf: the branch's bf16
+// tiles [pair][conv1, conv2] and wb: [pair][flip(w2)^T, flip(w1)^T], both as
+// kernels/mrf.py:pack_mrf_weights lays them out; b1, b2: f32 (np, C); zero: C
+// f32 zeros. dw1, dw2: (np, k, C, C) f32 and db1, db2: (np, C) f32, zeroed by
+// the caller. tile_r, tile_d: the replay's and dx's time tiles; splits: the
+// weight-gradient launch's K ranges. n_launched: kernels launched, 2 np + 1
+// when all went.
 extern "C" int svt_mrf_branch_bwd(const void* x, const void* g, void* dx, void* xs, void* hs,
-                                  void* dtmp, const float* w1, const float* b1, const float* w2,
-                                  const float* b2, const float* w1f, const float* w2f,
+                                  void* dys, void* dhs, const void* wf, const float* b1,
+                                  const float* b2, const void* wb, const float* zero,
                                   float* dw1, float* db1, float* dw2, float* db2, int B, int T,
-                                  int C, int tile, int k, int np, int d0, int d1, int d2,
-                                  int is_bf16, int* n_launched, void* stream) {
-  const BranchBwdArgs a{x, g, dx, xs, hs, dtmp, w1, b1, w2, b2, w1f, w2f, dw1, db1, dw2, db2};
+                                  int C, int tile_r, int tile_d, int k, int np, int d0, int d1,
+                                  int d2, int splits, int* n_launched, void* stream) {
+  using bf = __nv_bfloat16;
+  BwdArgs a{};
+  a.x = static_cast<const bf*>(x);
+  a.g = static_cast<const bf*>(g);
+  a.dx = static_cast<bf*>(dx);
+  a.xs = static_cast<bf*>(xs);
+  a.hs = static_cast<bf*>(hs);
+  a.dys = static_cast<bf*>(dys);
+  a.dhs = static_cast<bf*>(dhs);
+  a.wf = static_cast<const bf*>(wf);
+  a.wb = static_cast<const bf*>(wb);
+  a.b1 = b1;
+  a.b2 = b2;
+  a.zero = zero;
+  a.dw1 = dw1;
+  a.db1 = db1;
+  a.dw2 = dw2;
+  a.db2 = db2;
   const int dil[3] = {d0, d1, d2};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   *n_launched = 0;
   cudaGetLastError();  // clear an earlier, unrelated error
-#define SVT_BWD_CASE(CC)                                                                       \
-  case CC:                                                                                     \
-    return is_bf16 ? launch_branch_bwd<CC, __nv_bfloat16>(a, B, T, tile, k, np, dil,           \
-                                                          n_launched, s)                       \
-                   : launch_branch_bwd<CC, float>(a, B, T, tile, k, np, dil, n_launched, s);
+  if (np < 1 || np > 3 || splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+#define SVT_BWD_CASE(CC) \
+  case CC:               \
+    return launch_branch_bwd<CC>(a, B, T, tile_r, tile_d, k, np, dil, splits, n_launched, s);
   switch (C) {
     SVT_BWD_CASE(32)
     SVT_BWD_CASE(64)

@@ -17,9 +17,12 @@ Each build gets the weight layout and tile its geometry reads. Shapes: x
 kernel sizes (3, 7, 11), dilations (1, 3, 5); each result is held to the
 plain version (max |diff| printed); device ms over 5 launches, the builds
 interleaved, ROUNDS times (every other round in reverse order), then each
-leg's median and range.
+leg's median and range. With a second argument, the root of another
+checkout (an earlier commit unpacked with ``git archive``), its
+``mrf_pair.cu`` is built as one more leg (``other``), so a change to the
+pair kernel is timed against its parent in one call.
 
-    python -m smart_vocoder_torch.tools.ab_pair_pass [ROUNDS]   (ROUNDS: 2)
+    python -m smart_vocoder_torch.tools.ab_pair_pass [ROUNDS [CHECKOUT]]   (ROUNDS: 2)
 
 Needs the card and ``nvcc``; builds into ``smart_vocoder_torch/_build/ab/``.
 """
@@ -31,6 +34,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 
@@ -45,7 +49,8 @@ VARIANTS = {"tree": None, "n128": 128, "n64": 64}  # name -> columns of a pass
 PATCHED = ("load_library", "_conv_tiles", "unpacked_smem_bytes", "pair_geometry")
 
 # The pass-split geometry and GEMM, put in place of the tree's PairGeometry,
-# smem_bytes and pair_conv (everything from the struct to the kernel).
+# smem_bytes and pair_conv in csrc/mrf_pair.cuh (everything from the struct to
+# the kernel).
 SPLIT_SOURCE = r"""
 constexpr int kPassN = PASS_N;
 
@@ -113,11 +118,12 @@ __device__ __forceinline__ void pair_conv(WeightRing& ring, uint32_t a, int a_ro
 
 
 def _split_sources(n: int, src) -> None:
-    """Rewrites the copy ``src/mrf_pair.cu`` to passes of n columns."""
-    path = src / "mrf_pair.cu"
+    """Rewrites the copy ``src/mrf_pair.cuh`` (the pair's geometry, GEMM and
+    kernel, which ``mrf_pair.cu`` includes) to passes of n columns."""
+    path = src / "mrf_pair.cuh"
     text = path.read_text()
     start = text.index("template <int C>\nstruct PairGeometry")
-    end = text.index("template <int C>\n__global__")
+    end = text.index("template <int C, bool REPLAY>\n__global__")
     ring = "ring_start<C, G::KT,"
     if text.count(ring) != 1:
         raise RuntimeError(f"{path}: no single '{ring}'")
@@ -126,13 +132,16 @@ def _split_sources(n: int, src) -> None:
     path.write_text(text)
 
 
-def build() -> dict[str, ctypes.CDLL]:
+def build(variants: dict, src_dirs: dict) -> dict[str, ctypes.CDLL]:
+    """One library of ``mrf_pair.cu`` per variant: a copy of the sources (this
+    package's, or ``src_dirs[name]``), split to passes of n columns where n is
+    given; all nvcc runs at once."""
     out = _build.BUILD_DIR / "ab"
     procs = {}
-    for name, n in VARIANTS.items():
+    for name, n in variants.items():
         src = out / f"pair_{name}"
         shutil.rmtree(src, ignore_errors=True)
-        shutil.copytree(_build.SRC_DIR, src)
+        shutil.copytree(src_dirs.get(name, _build.SRC_DIR), src)
         if n is not None:
             _split_sources(n, src)
         so = out / f"pair_{name}.so"
@@ -172,7 +181,7 @@ def _split_layout(n: int) -> dict:
             "pair_geometry": lambda c: K.PairGeometry(512, K.MMA_STAGES)}
 
 
-def main(rounds: int = 2) -> dict[str, dict[str, float]]:
+def main(rounds: int = 2, checkout: str | None = None) -> dict[str, dict[str, float]]:
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(0)
     cases = {}
@@ -182,7 +191,11 @@ def main(rounds: int = 2) -> dict[str, dict[str, float]]:
                     for s in ((3, k, c, c), (3, c), (3, k, c, c), (3, c))) for k in KS]
         x = (torch.randn(shape, generator=gen, device=dev) * 0.5).bfloat16()
         cases[str(shape)] = (x, br, K.mrf_stage_plain(x, br, KS, DIL, K.BF16))
-    libs = build()
+    variants, src_dirs = dict(VARIANTS), {}
+    if checkout:
+        variants["other"] = None
+        src_dirs["other"] = Path(checkout) / "smart_vocoder_torch" / "kernels" / "csrc"
+    libs = build(variants, src_dirs)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(f"unpacked stage pass widths  [{card}]", flush=True)
@@ -194,8 +207,8 @@ def main(rounds: int = 2) -> dict[str, dict[str, float]]:
             for name, lib in (legs if r % 2 == 0 else legs[::-1]):
                 for attr, fn in real.items():
                     setattr(K, attr, fn)
-                if VARIANTS[name] is not None:
-                    for attr, fn in _split_layout(VARIANTS[name]).items():
+                if variants[name] is not None:
+                    for attr, fn in _split_layout(variants[name]).items():
                         setattr(K, attr, fn)
                 K.load_library = lambda lib=lib: lib
                 row = []
@@ -222,4 +235,4 @@ def main(rounds: int = 2) -> dict[str, dict[str, float]]:
 
 
 if __name__ == "__main__":
-    main(*map(int, sys.argv[1:2]))
+    main(*map(int, sys.argv[1:2]), *sys.argv[2:3])

@@ -24,7 +24,7 @@ partial mask and a partial last chunk of layers. Tolerances:
   replay, and its gradients to the plain backward on that same replay. f32:
   replay within 1e-4 and gradients within 1e-3 of their largest entry (f32
   summation order, which the blocks' atomic adds change from run to run);
-  bf16: the same cost rule as the forward stages.
+  bf16 (the tensor-core backward): the same cost rule as the forward stages.
 - the gate: f32 within 1e-6, bf16 within one ulp of the output.
 """
 
@@ -506,25 +506,35 @@ def test_fused_gate_kernel_matches_plain(dtype, g_kind, shape):
         assert bool((diff <= want.float().abs().clamp_min(2.0 ** -126) * 2.0 ** -7).all())
 
 
+def _branch_bwd_case(rng, c, k, t, tdt):
+    """Inputs of one branch backward and the kernel's result with its replay;
+    checks that the launches went to the route of ``tdt`` alone: a bf16 x the
+    tensor-core kernels (a replay and a dx step per residual pair, one
+    weight-gradient launch), an f32 x the FMA body (two per pair)."""
+    branch = _branches(rng, c, (k,), DIL, 0.02, tdt)[0]
+    x = torch.from_numpy(rng.normal(0, 0.5, (2, t, c)).astype(np.float32)).to(tdt).cuda()
+    g = torch.from_numpy(rng.normal(0, 1, (2, t, c)).astype(np.float32)).to(tdt).cuda()
+    before = dict(tmrf.LAUNCHES)
+    dx, dws, replay = mrf_branch_bwd(x, g, branch, k, DIL, with_replay=True)
+    torch.cuda.synchronize()
+    want = ({"mrf_branch_bwd": 2 * len(DIL) + 1} if tdt == torch.bfloat16
+            else {"mrf_branch_bwd_fma": 2 * len(DIL)})
+    assert {n: v - before[n] for n, v in tmrf.LAUNCHES.items() if v != before[n]} == want
+    assert dx.dtype == tdt and dx.shape == x.shape
+    return branch, x, g, dx, dws, replay
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("c", [32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("k", KS)
 def test_mrf_branch_bwd_kernel_matches_plain(c, dtype, k):
-    """T = 777 straddles every tile the wrapper can pick (32 to 256 rows) and
+    """T = 777 straddles every tile the wrapper can pick (32 to 240 rows) and
     ends inside one, so halo rows meet at seams: a row counted twice in dw, or
     a missing edge mask, shows here."""
     rng = np.random.default_rng(c + k)
     tdt = torch.float32 if dtype == "f32" else torch.bfloat16
-    branch = _branches(rng, c, (k,), DIL, 0.02, tdt)[0]
-    x = torch.from_numpy(rng.normal(0, 0.5, (2, 777, c)).astype(np.float32)).to(tdt).cuda()
-    g = torch.from_numpy(rng.normal(0, 1, (2, 777, c)).astype(np.float32)).to(tdt).cuda()
-    before = tmrf.LAUNCHES["mrf_branch_bwd"]
-    dx, dws, replay = mrf_branch_bwd(x, g, branch, k, DIL, with_replay=True)
-    torch.cuda.synchronize()
-    # a replay and a backward kernel per residual pair
-    assert tmrf.LAUNCHES["mrf_branch_bwd"] == before + 2 * len(DIL)
-    assert dx.dtype == tdt and dx.shape == x.shape
+    branch, x, g, dx, dws, replay = _branch_bwd_case(rng, c, k, 777, tdt)
     flat = [v for vs in replay for v in vs]
     want_flat = [v for vs in branch_replay_plain(x, branch, k, DIL) for v in vs]
     wdx, wdws = mrf_branch_bwd_plain(x, g, branch, k, DIL, replay)
@@ -547,6 +557,41 @@ def test_mrf_branch_bwd_kernel_matches_plain(c, dtype, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 63, 777, "tiles"])
+@pytest.mark.parametrize("c", [32, 64, 128, 256])
+@pytest.mark.parametrize("k", KS)
+def test_mrf_branch_bwd_bf16_at_lengths_off_the_tiles(c, k, t):
+    """The tensor-core backward at lengths below, across and over the tiles
+    (two dx tiles, the second ragged), on its own replay: the replay against
+    the plain replay and the gradients against the plain backward on it, as
+    chip_smoke.py compares bf16 (the max within what bf16 costs against the f32
+    result or one bf16 ulp of the largest entry; the mean under half the mean
+    cost wherever there are rows enough to average)."""
+    from smart_vocoder_torch.kernels.mrf_train import branch_bwd_tile
+
+    rng = np.random.default_rng(3 * c + k)
+    if t == "tiles":
+        t = 2 * branch_bwd_tile(c, k, DIL) - 5
+    branch, x, g, dx, dws, replay = _branch_bwd_case(rng, c, k, t, torch.bfloat16)
+    want_replay = branch_replay_plain(x, branch, k, DIL)
+    exact_replay = branch_replay_plain(x.float(), branch, k, DIL)
+    wdx, wdws = mrf_branch_bwd_plain(x, g, branch, k, DIL, replay)
+    edx, edws = mrf_branch_bwd_plain(x.float(), g.float(), branch, k, DIL,
+                                     [[v.float() for v in vs] for vs in replay])
+    pairs = [(a, w, e) for vs, ws, es in zip(replay, want_replay, exact_replay)
+             for a, w, e in zip(vs, ws, es)][1:]  # x_0 is x itself
+    pairs += list(zip((dx, *dws), (wdx, *wdws), (edx, *edws)))
+    for got, want, exact in pairs:
+        got, want, exact = got.float(), want.float(), exact.float()
+        assert torch.isfinite(got).all()
+        err, ref = (got - want).abs(), (want - exact).abs()
+        top = want.abs().max().item()
+        ulp = 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 0.0
+        assert err.max().item() <= max(ref.max().item(), ulp)
+        assert t < 64 or err.mean().item() < 0.5 * ref.mean().item()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_mrf_stage_train_function_on_the_card(dtype):
     """value and gradients through the Function: forward the unpacked kernel,
@@ -560,9 +605,11 @@ def test_mrf_stage_train_function_on_the_card(dtype):
     out = mrf_stage_train(x, br, KS, DIL)
     out.float().abs().mean().backward()
     torch.cuda.synchronize()
-    fwd = "mrf_stage_unpacked_fma" if dtype == "f32" else "mrf_stage_unpacked"
-    assert tmrf.LAUNCHES[fwd] == before[fwd] + 9
-    assert tmrf.LAUNCHES["mrf_branch_bwd"] == before["mrf_branch_bwd"] + 18
+    # forward: a kernel per residual pair; backward per branch: bf16 a replay and a
+    # dx step per pair and one weight-gradient launch, f32 two FMA kernels per pair
+    want = ({"mrf_stage_unpacked_fma": 9, "mrf_branch_bwd_fma": 18} if dtype == "f32"
+            else {"mrf_stage_unpacked": 9, "mrf_branch_bwd": 21})
+    assert {n: v - before[n] for n, v in tmrf.LAUNCHES.items() if v != before[n]} == want
     got = [x.grad] + [a.grad for b in br for a in b]
     assert all(g is not None and torch.isfinite(g).all() for g in got)
     assert x.grad.dtype == tdt and br[0][0].grad.dtype == torch.float32

@@ -477,14 +477,14 @@ def test_unpacked_packed_weights_round_trip(c):
 @pytest.mark.parametrize("n", [128, 64])
 def test_ab_pair_pass_split_build(n, tmp_path):
     """The pass-width tool's split build: it finds what it replaces in a copy
-    of ``mrf_pair.cu``, and its weight tiles [pass][tap][Cin / 64] of 64 x n
+    of ``mrf_pair.cuh``, and its weight tiles [pass][tap][Cin / 64] of 64 x n
     round-trip back to the conv."""
     from smart_vocoder_torch.kernels import _build
     from smart_vocoder_torch.tools import ab_pair_pass
 
-    (tmp_path / "mrf_pair.cu").write_text((_build.SRC_DIR / "mrf_pair.cu").read_text())
+    (tmp_path / "mrf_pair.cuh").write_text((_build.SRC_DIR / "mrf_pair.cuh").read_text())
     ab_pair_pass._split_sources(n, tmp_path)
-    text = (tmp_path / "mrf_pair.cu").read_text()
+    text = (tmp_path / "mrf_pair.cuh").read_text()
     assert f"kPassN = {n};" in text and text.count("struct PairGeometry") == 1
     assert "ring_start<G::TN, G::KT," in text and "ring_start<C," not in text
     c, k = 256, 3

@@ -197,3 +197,135 @@ def test_ab_tool_runs_both_legs_on_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         ab_mrf_train.main(reps=1, iters=1)
+
+
+def _split_backward(x, g, branch, k):
+    """The CUDA backward's pieces in its order, on the plain replay: per pair
+    from the last, conv2's weight gradients, the dx step, conv1's."""
+    xs, hs = ttrain.branch_replay_plain(x, branch, k, DILS)
+    w1, _, w2, _ = (tmrf._round_to(a, x.dtype) for a in branch)
+    dy, grads = g, {}
+    for j in reversed(range(len(DILS))):
+        grads["dw2", j], grads["db2", j] = ttrain.conv_dw_plain(hs[j], dy, k, 1)
+        dy, dh = ttrain.pair_dx_plain(dy, xs[j], hs[j], w1[j], w2[j], k, DILS[j])
+        grads["dw1", j], grads["db1", j] = ttrain.conv_dw_plain(xs[j], dh, k, DILS[j])
+    return dy, [torch.stack([grads[n, j] for j in range(len(DILS))])
+                for n in ("dw1", "db1", "dw2", "db2")]
+
+
+@pytest.mark.parametrize("t", [37, 12], ids=["ragged", "below_tile"])
+@pytest.mark.parametrize("k", KS)
+def test_split_backward_pieces_match_jax_kernel(k, t):
+    """The plain pieces of the split backward -- the replay, each pair's dx
+    step (``pair_dx_plain``) and the weight-gradient GEMM over the saved
+    tensors (``conv_dw_plain``) -- composed as the kernels run them, against
+    the JAX kernel's gradients (tile 16: T = 37 ends inside the third tile, and
+    T = 12 lies within one). f32, the JAX test's tolerance: atol 2e-3, rtol
+    1e-3 (summation order)."""
+    x, branches, g = _inputs(6, t)
+    branch = branches[KS.index(k)]
+    want_dx, want = jtrain.mrf_branch_bwd(jnp.asarray(x), jnp.asarray(g),
+                                          tuple(jnp.asarray(a) for a in branch), k, DILS,
+                                          16, True)
+    dx, got = _split_backward(torch.from_numpy(x), torch.from_numpy(g),
+                              tuple(torch.from_numpy(a) for a in branch), k)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(want_dx), atol=2e-3, rtol=1e-3)
+    for a, b, name in zip(got, want, NAMES):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=2e-3, rtol=1e-3, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_backward_is_the_plain_backward(dtype):
+    """The pieces composed give the plain backward bit for bit, in both modes
+    (bf16: each piece takes and returns bf16 values, so nothing is lost
+    between them)."""
+    x, branches, g = _inputs(7, 41)
+    branch = tuple(torch.from_numpy(a) for a in branches[2])
+    xt, gt = torch.from_numpy(x).to(dtype), torch.from_numpy(g).to(dtype)
+    dx, got = _split_backward(xt, gt, branch, 11)
+    want_dx, want = ttrain.mrf_branch_bwd_plain(xt, gt, branch, 11, DILS)
+    assert dx.dtype == dtype and torch.equal(dx, want_dx)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("c", [32, 64, 128, 256])
+@pytest.mark.parametrize("k", KS)
+def test_backward_tiles_and_shared_memory_mirror(c, k):
+    """The dx step's tile and shared memory (``csrc/mrf_train.cu``) for every
+    dilation: dy over tile + 2(hd + h) rows, dh over tile + 2hd, bf16 rows
+    padded by 8, and the unpacked stage's ring; the tile is the largest
+    candidate whose dq rows (tile + 2hd) the warpgroups cover and whose block
+    fits. The replay keeps the forward's tile."""
+    h, geo = (k - 1) // 2, tmrf.pair_geometry(c)
+    ring = geo.stages * (64 if c >= 128 else c) * (c + 8) * 2
+    tile = ttrain.branch_bwd_tile(c, k, DILS)
+
+    def fits(tl, d):
+        smem = ((tl + 2 * (h * d + h)) + (tl + 2 * h * d)) * (c + 8) * 2 + ring
+        assert ttrain.branch_bwd_smem_bytes(c, tl, h, d) == smem
+        return tl + 2 * h * d <= geo.threads // 2 and smem <= tmrf.SMEM_LIMIT
+
+    for d in (1, 3, 5):
+        assert fits(tile, d)
+    larger = [tl for tl in tmrf.PAIR_TILES if tl > tile]
+    assert all(not all(fits(tl, d) for d in DILS) for tl in larger)
+    assert tile == (64 if c == 256 else 240 if k == 3 else 128)
+    if (c, k) == (256, 11):
+        assert ttrain.branch_bwd_smem_bytes(c, tile, h, 5) == 227_040
+
+
+@pytest.mark.parametrize("c", [32, 64, 128, 256])
+def test_weight_gradient_grid_covers_every_row_once(c):
+    """The weight-gradient launch: four blocks fit on an SM (228 KB, 1 KB a block
+    kept by the card), three at C = 32 with its longer chunks; the
+    K ranges the blocks take (``split * chunks // splits`` ..) cover every
+    chunk of the B * T rows once, each at least DW_MIN_CHUNKS long where the
+    rows allow; and the blocks fill the card at the training shapes."""
+    geo = ttrain.dw_geometry(c)
+    per_sm = 228 * 1024 // (ttrain.dw_smem_bytes(c) + 1024)
+    assert per_sm == (4 if c >= 64 else 3)
+    assert ttrain.dw_smem_bytes(c) == (55_296 if c >= 64 else 61_440)
+    rows = {256: 16 * 256, 128: 16 * 2048, 64: 16 * 4096, 32: 16 * 8192}[c]
+    for k in KS:
+        for r in (rows, 1, 777 * 2):
+            splits = ttrain.dw_splits(r, c, k, 6)
+            chunks = -(-r // geo.kc)
+            ranges = [(s * chunks // splits, (s + 1) * chunks // splits) for s in range(splits)]
+            covered = [q for lo, hi in ranges for q in range(lo, hi)]
+            assert covered == list(range(chunks))
+            assert chunks < ttrain.DW_MIN_CHUNKS or min(hi - lo for lo, hi in ranges) >= (
+                ttrain.DW_MIN_CHUNKS)
+        blocks = 6 * k * (c // geo.tm) ** 2 * ttrain.dw_splits(rows, c, k, 6)
+        assert blocks >= per_sm * 132
+
+
+def _unpack_tiles(flat, k, c):
+    """:func:`pack_mrf_weights`' tiles of one conv back to (k, C, C)."""
+    if c <= 64:
+        tiles = flat.reshape(k, c, c)
+        if c != tmrf.WGMMA_CHANNELS:
+            return tiles
+        return tiles.reshape(k, c // 8, c // 8, 8, 8).permute(0, 2, 4, 1, 3).reshape(k, c, c)
+    tiles = flat.reshape(-1, c // 8, 8, 8, 8).permute(0, 2, 4, 1, 3).reshape(-1, 64, c)
+    return tiles.reshape(k, c, c)
+
+
+@pytest.mark.parametrize("c", [32, 64, 128, 256])
+def test_flipped_weight_packing_round_trips(c):
+    """The dx step's tiles [pair][flip(w2)^T, flip(w1)^T] unpack to
+    ``w.flip(1).transpose(-1, -2)`` bit for bit, and the replay's tiles to the
+    branch's own weights."""
+    rng = np.random.default_rng(c)
+    k, n = 3, 2
+    branch = tuple(torch.from_numpy(rng.normal(0, 0.1, s).astype(np.float32)).bfloat16().float()
+                   for s in ((n, k, c, c), (n, c), (n, k, c, c), (n, c)))
+    wf, wb = ttrain.pack_branch_weights(branch)
+    assert wf.dtype == wb.dtype == torch.bfloat16 and wf.numel() == wb.numel() == 2 * n * k * c * c
+    conv = k * c * c
+    for j in range(n):
+        for i, (fwd, bwd) in enumerate(((branch[0], branch[2]), (branch[2], branch[0]))):
+            got_f = _unpack_tiles(wf[(2 * j + i) * conv:(2 * j + i + 1) * conv], k, c)
+            got_b = _unpack_tiles(wb[(2 * j + i) * conv:(2 * j + i + 1) * conv], k, c)
+            assert torch.equal(got_f.float(), fwd[j])
+            assert torch.equal(got_b.float(), bwd[j].flip(0).transpose(-1, -2))
