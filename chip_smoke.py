@@ -59,6 +59,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
    of cuDNN autograd against ``mrf_stage_train`` (forward and backward on the
    tensor cores, weights packed per call; no ``*_fma`` launch), interleaved.
 8. variants (``tools/exp_mrf_variants.py``): stage 3, x (32, 128000, 64).
+9. live serving at full width. The prior noise on the card against the CPU
+   (``ops.noise``: Philox words equal, normals within 1e-6). iitp_base hifi 2
+   bf16: ``mel_to_wav_chunked`` of a 6000-frame utterance at 1024:128 against
+   ``mel_to_wav`` of the whole with the same ``positional_eps`` (mel-L1 <=
+   1e-3) and against the plain f32 path's chunked decode (<= 1e-2);
+   ``stream_mel_to_wav`` over ragged pieces equal to the chunked decode bit
+   for bit; hifi 0 + WN kernels chunked (launches only). ``StreamServer`` at
+   384:96, 8 rows, on iitp_base_ms (109 speakers): eight streams of 800-1600
+   frames with mixed seeds, sids and noise scales; one stream bit-identical
+   alone and among other co-tenants in another row; each stream against its
+   B = 1 ``stream_mel_to_wav`` (mel-L1 <= 1e-3). Every one of these paths runs
+   with the counts reset just before it: one launch of each stage kernel a
+   window or server step, no ``*_fma``. Voice conversion on iitp_base_ms in
+   f32, B = 2 x 400 frames: the same speaker recovers z within 1e-4 of its
+   largest entry; another gives finite waveforms in [-1, 1] that differ.
+   Profiles of one B = 1 window and one 8-row server step at 384:96. Timing: ``tools/bench_streaming.py`` in a fresh process (first window cold
+   against after ``warmup``, the B = 1 operating points, the N = 1, 8, 32
+   stream sweep), each table with the card's name and power limit.
 
 Every kernel's record carries its bound: the larger of its operations over
 the card's peak for their type (989 TFLOP/s, bf16 tensor cores: every conv
@@ -317,6 +335,234 @@ def profile_step(label: str, fn, card: str, rows: int) -> None:
     log(f"profile ({label}, one step, top kernels by device time):")
     for line in table.splitlines():
         log("  " + line)
+
+
+LIVE_FRAMES = 6000       # ~70 s of audio
+LIVE_POINT = (1024, 128)
+SERVER_POINT = (384, 96)
+SERVER_ROWS = 8
+
+
+def live_path(label: str, run, per_call: dict, calls) -> object:
+    """Drive one live path with the counts reset just before it and read them
+    just after: each kernel of ``per_call`` launched that many times per
+    window or server step (``calls()`` of them, read after the run), and
+    nothing else, no ``*_fma`` body in particular."""
+    import torch
+
+    from smart_vocoder_torch.kernels import LAUNCHES, reset_launch_counts
+
+    reset_launch_counts()
+    out = run()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in LAUNCHES.items() if v}
+    n = calls()
+    want = {k: v * n for k, v in per_call.items()}
+    log(f"live {label}: {n} windows/steps, launches {counts}")
+    if counts != want:
+        raise RuntimeError(f"{label}: launches {counts}, expected {want}")
+    return out
+
+
+def windows(t: int, chunk: int, overlap: int) -> int:
+    """Windows ``mel_to_wav_chunked`` cuts from t frames."""
+    step = chunk - 2 * overlap
+    return 1 if t <= step else -(-t // step)
+
+
+def live_serving(vocoder_hifi2, vocoder_f32, vocoder_wn0, mel_l1, card: str, rng) -> None:
+    """Phase 9: the windows, the stream, the server and voice conversion at
+    full width, then the timing tool in a fresh process."""
+    import torch
+
+    from smart_vocoder_torch.config import load_config
+    from smart_vocoder_torch.inference import Vocoder
+    from smart_vocoder_torch.models import build_synthesizer
+    from smart_vocoder_torch.ops import positional_eps, spectrogram
+    from smart_vocoder_torch.ops.noise import philox4x32
+    from smart_vocoder_torch.serving import StreamServer
+    from smart_vocoder_torch.utils.init import init_synthesizer
+
+    dev = vocoder_hifi2.device
+    hps = vocoder_hifi2.hps
+    n_mels, inter = hps.data.n_mel_channels, hps.model.inter_channels
+    stages = {"mrf_stage": 1, "up_mrf_stage": 1}  # one launch of each a window or step
+
+    # the noise: the same Philox words on the card as on the CPU; the normals
+    # within 1e-6 (float64 log/cos/sin, rounded once to float32)
+    frame = torch.arange(LIVE_FRAMES, dtype=torch.int64)[:, None] + 2 ** 33 - 100
+    block = torch.arange(inter // 4, dtype=torch.int64)[None, :]
+    words = [philox4x32([frame & 0xFFFFFFFF, frame >> 32, block, torch.tensor(0)],
+                        [torch.tensor(SEED), torch.tensor(7)]) for frame, block in
+             ((frame, block), (frame.to(dev), block.to(dev)))]
+    if not all(torch.equal(a, b.cpu()) for a, b in zip(*words)):
+        raise RuntimeError("positional noise: Philox words differ between the CPU and the card")
+    e_card = positional_eps([SEED, 7], [0, 2 ** 33], LIVE_FRAMES, inter, dev)
+    err = (e_card.cpu() - positional_eps([SEED, 7], [0, 2 ** 33], LIVE_FRAMES, inter)).abs().max()
+    log(f"live noise: {tuple(e_card.shape)} on the card vs the CPU: words equal, normals max "
+        f"|diff| {err.item():.2e} (<= 1e-6)")
+    if not err <= 1e-6:
+        raise RuntimeError("positional noise: the card's normals differ from the CPU's")
+
+    # chunked against whole, iitp_base hifi 2 bf16
+    chunk, overlap = LIVE_POINT
+    mel = (rng.normal(0, 1, (LIVE_FRAMES, n_mels)) * 2.0 - 4.0).astype(np.float32)
+    n_win = windows(LIVE_FRAMES, chunk, overlap)
+    kw = dict(chunk=chunk, overlap=overlap, noise_scale=0.667, seed=SEED)
+    chunked = live_path("chunked hifi 2", lambda: vocoder_hifi2.mel_to_wav_chunked(mel, **kw),
+                        stages, lambda: n_win)
+    eps = positional_eps([SEED], [0], LIVE_FRAMES, inter).numpy()
+    whole = vocoder_hifi2.mel_to_wav(mel[None], eps=eps)[0]
+    f32 = vocoder_f32.mel_to_wav_chunked(mel, **kw)
+    for w in (chunked, whole, f32):
+        if w.shape != (LIVE_FRAMES * HOP,) or not np.isfinite(w).all() or np.abs(w).max() > 1:
+            raise RuntimeError(f"live: bad waveform {w.shape}")
+    l1_whole, l1_f32 = mel_l1([chunked], [whole]), mel_l1([chunked], [f32])
+    log(f"live chunked {LIVE_FRAMES} frames at {chunk}:{overlap}, hifi 2 bf16: vs the whole "
+        f"utterance (same positional noise) mel-L1 {l1_whole:.6f} (<= 1e-3), max |diff| "
+        f"{np.abs(chunked - whole).max():.3e}; vs the plain f32 path chunked mel-L1 "
+        f"{l1_f32:.6f} (<= 1e-2)")
+    if not (l1_whole <= 1e-3 and l1_f32 <= 1e-2):
+        raise RuntimeError("live chunked: mel-L1 above its bound")
+
+    # the stream over ragged pieces: the same windows, so the same bits
+    cuts = np.cumsum(rng.integers(1, 400, LIVE_FRAMES))
+    cuts = [0] + [int(c) for c in cuts[cuts < LIVE_FRAMES]] + [LIVE_FRAMES]
+    pieces = [mel[a:b] for a, b in zip(cuts, cuts[1:])]
+    streamed = live_path("stream hifi 2", lambda: np.concatenate(list(
+        vocoder_hifi2.stream_mel_to_wav(iter(pieces), **kw))), stages, lambda: n_win)
+    log(f"live stream: {len(pieces)} ragged pieces, equal to the chunked decode bit for bit: "
+        f"{np.array_equal(streamed, chunked)}")
+    if not np.array_equal(streamed, chunked):
+        raise RuntimeError("live stream: differs from the chunked decode")
+
+    # the WN route's windows (hifi 0 + use_wn_kernels): 12 WN launches a window
+    short = mel[:2000]
+    wn = live_path("chunked hifi 0 + WN kernels",
+                   lambda: vocoder_wn0.mel_to_wav_chunked(short, **kw),
+                   {"wn_stack": 12, **stages}, lambda: windows(len(short), chunk, overlap))
+    log(f"live chunked hifi 0 + WN kernels: mel-L1 vs the plain f32 path chunked "
+        f"{mel_l1([wn], [f32[:len(wn)]]):.5f} (printed)")
+
+    # the multi-stream server on the speaker-conditioned config
+    hps_ms = load_config(os.path.join(ROOT, "configs", "iitp_base_ms.json"))
+    state_ms = {k: v.detach() for k, v in
+                init_synthesizer(build_synthesizer(hps_ms), SEED).state_dict().items()}
+    voc_ms = Vocoder(hps_ms, state_ms, dtype=torch.bfloat16, device=dev)
+    chunk, overlap = SERVER_POINT
+    specs = [dict(seed=SEED + i, sid=int(rng.integers(0, hps_ms.data.n_speakers)),
+                  noise_scale=(0.667, 1.0)[i % 2]) for i in range(SERVER_ROWS)]
+    mels = [(rng.normal(0, 1, (int(rng.integers(800, 1601)), n_mels)) * 2.0 - 4.0)
+            .astype(np.float32) for _ in specs]
+
+    def ragged(m):
+        cut = np.cumsum(rng.integers(20, 120, len(m)))
+        cut = [0] + [int(c) for c in cut[cut < len(m)]] + [len(m)]
+        return [m[a:b] for a, b in zip(cut, cut[1:])]
+
+    feeds = [ragged(m) for m in mels]
+
+    def serve(streams):
+        """[(spec, pieces)] through one 8-row server -> (audio per stream, steps)."""
+        server = StreamServer(voc_ms, max_streams=SERVER_ROWS, chunk=chunk, overlap=overlap)
+        steps, step = [0], server.step
+
+        def counted():
+            steps[0] += 1
+            return step()
+
+        server.step = counted
+        handles = [server.open(**spec) for spec, _ in streams]
+        got = {h: [] for h in handles}
+        for h, wav in server.run({h: iter(p) for h, (_, p) in zip(handles, streams)}):
+            got[h].append(wav)
+        return [np.concatenate(got[h]) for h in handles], steps
+
+    result = {}
+
+    def run_crowded():
+        result["audio"], result["steps"] = serve(list(zip(specs, feeds)))
+        return result["audio"]
+
+    crowded = live_path(f"StreamServer {SERVER_ROWS} rows at {chunk}:{overlap}", run_crowded,
+                        stages, lambda: result["steps"][0])
+    alone = serve([(specs[0], feeds[0])])[0][0]
+    others = [(dict(seed=SEED + 100 + i, sid=i, noise_scale=1.0), ragged(mels[(i + 1) % len(mels)][::-1]))
+              for i in range(5)]
+    moved = serve(others + [(specs[0], feeds[0])])[0][-1]  # the same stream in row 5
+    log(f"live StreamServer: stream 0 among {len(specs) - 1} others, bit-identical alone "
+        f"{np.array_equal(alone, crowded[0])}, in row {len(others)} among {len(others)} other "
+        f"streams {np.array_equal(moved, crowded[0])}")
+    if not (np.array_equal(alone, crowded[0]) and np.array_equal(moved, crowded[0])):
+        raise RuntimeError("StreamServer: a stream's audio depends on its row or co-tenants")
+    worst = 0.0
+    for i, (spec, pieces, got) in enumerate(zip(specs, feeds, crowded)):
+        want = np.concatenate(list(voc_ms.stream_mel_to_wav(
+            iter(pieces), chunk=chunk, overlap=overlap, seed=spec["seed"],
+            sid=np.array([spec["sid"]]), noise_scale=spec["noise_scale"])))
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise RuntimeError(f"StreamServer stream {i}: {got.shape} vs B = 1 {want.shape}")
+        l1 = mel_l1([got], [want])
+        worst = max(worst, l1)
+        log(f"  stream {i} ({len(mels[i])} frames, sid {spec['sid']}, noise "
+            f"{spec['noise_scale']}): batched vs B = 1 max |diff| "
+            f"{np.abs(got - want).max():.3e}, mel-L1 {l1:.6f} (<= 1e-3)")
+    if not worst <= 1e-3:
+        raise RuntimeError(f"StreamServer: batched vs B = 1 mel-L1 {worst} above 1e-3")
+
+    # where a window's time goes: one B = 1 window and one 8-row server step
+    server = StreamServer(voc_ms, max_streams=SERVER_ROWS, chunk=chunk, overlap=overlap)
+    for i, m in enumerate(mels):
+        server.feed(server.open(seed=i, sid=i), m)
+    server.step()
+    profile_step(f"B = 1 window {chunk}:{overlap} (iitp_base hifi 2)", lambda:
+                 vocoder_hifi2._synth_window(mel[:chunk], 0, chunk, 0.667, None, SEED), card, 12)
+    profile_step(f"StreamServer {SERVER_ROWS}-row step {chunk}:{overlap} (iitp_base_ms hifi 2)",
+                 server.step, card, 12)
+    del server
+
+    # voice conversion, f32, B = 2 x 400 frames of the chunked decode's spectrogram
+    net = build_synthesizer(hps_ms, device=dev)
+    net.load_state_dict(state_ms, strict=True)
+    net.eval()
+    y = torch.from_numpy(chunked[: 2 * 400 * HOP].reshape(2, -1)).to(dev)
+    spec = spectrogram(y, vocoder_hifi2.mel_cfg)
+    lens = torch.tensor([400, 333], device=dev)
+    eps_q = torch.randn((2, spec.shape[1], inter), generator=torch.Generator().manual_seed(SEED))
+    with torch.inference_mode():
+        src = torch.tensor([5, 77], device=dev)
+        o_same, _, (z, _, z_hat) = net.voice_conversion(spec, lens, eps_q.to(dev), src, src)
+        o_other, _, _ = net.voice_conversion(spec, lens, eps_q.to(dev), src,
+                                             torch.tensor([12, 3], device=dev))
+    rel = ((z_hat - z).abs().max() / z.abs().max()).item()
+    moved = (o_other - o_same).abs().max().item()
+    log(f"live voice conversion, iitp_base_ms f32, spec {tuple(spec.shape)}: same speaker "
+        f"|z_hat - z| max {rel:.2e} of max |z| (<= 1e-4); another speaker max |diff| {moved:.3e}")
+    for o in (o_same, o_other):
+        if o.shape != (2, 400 * HOP, 1) or not torch.isfinite(o).all() or o.abs().max() > 1:
+            raise RuntimeError(f"voice conversion: bad waveform {tuple(o.shape)}")
+    if not (rel <= 1e-4 and moved > 1e-3):
+        raise RuntimeError("voice conversion: z not recovered, or the target speaker does nothing")
+    del net, voc_ms
+
+    # timing: the warm-up table, operating points and stream sweep, in a fresh
+    # process so that the first window is really cold
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "smart_vocoder_torch.tools.bench_streaming"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log("  " + line)
+    if proc.returncode != 0:
+        raise RuntimeError(f"bench_streaming failed:\n{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    bench = json.loads(lines[-1])
+    numbers = [v for rows in ("warmup", "points", "streams") for r in bench[rows]
+               for v in r.values()]
+    if not all(np.isfinite(v) for v in numbers) or {r["chunk"] for r in bench["warmup"]} < {
+            1024, 384} or [r["streams"] for r in bench["streams"]] != [1, 8, 32]:
+        raise RuntimeError(f"bench_streaming: {bench}")
+    log(f"live timing (tools/bench_streaming.py, fresh process): {time.time() - t0:.1f} s  "
+        f"[{card}]")
 
 
 def main() -> int:
@@ -994,6 +1240,9 @@ def main() -> int:
     # each value by under one bf16 rounding
     if variants["base"]["chk_central"] != variants["nomask"]["chk_central"]:
         raise RuntimeError(f"nomask differs from base beyond one radius of the ends: {variants}")
+
+    # 9. live serving: windows, streams, the multi-stream server, voice conversion
+    live_serving(vocoder_hifi2, vocoder_f32, vocoder_wn0, mel_l1, card, rng)
 
     kernels = [
         {"name": "mrf_stage", "route": "cuda",

@@ -8,13 +8,21 @@ through ``kernels/encoder.py:prior_flow_apply`` (every WN stack on the CUDA
 WN kernel), and the decoder through ``kernels/decoder.py:decoder_apply``,
 whose late stages are the hand-written CUDA kernels; ``_apply_infer`` is the
 plain module graph.
+
+Long and live input (``smart_vocoder_tpu/inference.py:298-516``): the model is
+fully convolutional, so ``mel_to_wav_chunked`` and ``stream_mel_to_wav`` decode
+overlapping windows of one fixed ``chunk`` shape (``_synth_window``) and keep
+each window's interior. The prior noise of a window comes from
+``ops.noise.positional_eps``, keyed by the absolute frame, so overlapping
+windows see the same latents and a stream equals the chunked decode bit for
+bit. ``serving.StreamServer`` batches the windows of many streams.
 """
 
 from __future__ import annotations
 
 import bisect
 import copy
-from typing import Mapping, Optional, Sequence
+from typing import Iterable, Iterator, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -24,7 +32,13 @@ from smart_vocoder_torch.kernels.decoder import DecoderConfig, decoder_apply, pa
 from smart_vocoder_torch.kernels.encoder import pack_prior_flow, prior_flow_apply
 from smart_vocoder_torch.models import build_synthesizer
 from smart_vocoder_torch.nn import fold_weight_norm
-from smart_vocoder_torch.ops import MelConfig, sequence_mask, spec_to_mel, spectrogram
+from smart_vocoder_torch.ops import (
+    MelConfig,
+    positional_eps,
+    sequence_mask,
+    spec_to_mel,
+    spectrogram,
+)
 from smart_vocoder_torch.utils.device import resolve_device
 from smart_vocoder_torch.utils.torch_compat import load_reference_generator
 
@@ -131,6 +145,14 @@ class Vocoder:
             rows.append(torch.randn((t, c), generator=torch.Generator().manual_seed(s)))
         return torch.stack(rows)
 
+    def _infer(self, mel, lengths, eps, noise_scale, sid=None):
+        """The serving program: ``_apply_infer_fast`` where a kernel route is
+        on, else the plain module graph. ``noise_scale``: a float or one per
+        row ``(B,)``."""
+        fn = (self._apply_infer_fast if self.use_kernels or self.use_wn_kernels
+              else self._apply_infer)
+        return fn(mel, lengths, eps, noise_scale, sid)
+
     @torch.inference_mode()
     def _apply_infer(self, mel, lengths, eps, noise_scale, sid=None):
         o, _ = self.net.infer(mel, lengths, eps, noise_scale, sid)
@@ -176,12 +198,10 @@ class Vocoder:
             eps = np.asarray(eps, np.float32)
             eps_t = torch.from_numpy(np.pad(eps, ((0, 0), (0, padded_t - eps.shape[1]), (0, 0))))
         dev = self.device
-        infer = (self._apply_infer_fast if self.use_kernels or self.use_wn_kernels
-                 else self._apply_infer)
-        o = infer(torch.from_numpy(mel).to(dev),
-                  torch.as_tensor(np.asarray(lengths), dtype=torch.int64, device=dev),
-                  eps_t.to(dev), noise_scale,
-                  None if sid is None else torch.as_tensor(np.asarray(sid), device=dev))
+        o = self._infer(torch.from_numpy(mel).to(dev),
+                        torch.as_tensor(np.asarray(lengths), dtype=torch.int64, device=dev),
+                        eps_t.to(dev), noise_scale,
+                        None if sid is None else torch.as_tensor(np.asarray(sid), device=dev))
         o = o.float().cpu().numpy()
         hop = self.hps.data.hop_length
         return [o[i, : int(lengths[i]) * hop, 0] for i in range(b)]
@@ -193,3 +213,105 @@ class Vocoder:
         wav = torch.from_numpy(wav[:, : (wav.shape[1] // hop) * hop])
         mel = spec_to_mel(spectrogram(wav, self.mel_cfg), self.mel_cfg)
         return self.mel_to_wav(mel.numpy(), **kw)[0]
+
+    # -- windows: chunked and streaming synthesis ----------------------------
+    def warmup(self, chunks: Optional[Sequence[int]] = None,
+               sid: Optional[np.ndarray] = None) -> None:
+        """Run the window program once for each chunk size (default: every
+        bucket), so that a live session's first window pays none of the
+        one-off costs: the kernel library's first load, cuDNN's plan choice
+        for the shape, the allocator's growth. Pass ``sid`` when serving a
+        speaker-conditioned model (the conditioned prior runs other
+        operations)."""
+        n_mels = int(self.hps.data.n_mel_channels)
+        for c in chunks or self.buckets:
+            self._synth_window(np.zeros((c, n_mels), np.float32), 0, c, 0.667, sid, 0)
+
+    def _synth_window(self, mel_win: np.ndarray, lo: int, chunk: int,
+                      noise_scale: float, sid, seed: int) -> np.ndarray:
+        """Decode one window (absolute frames ``[lo, lo + len)``) padded to
+        ``chunk`` frames, so one shape serves every window. Its prior noise is
+        ``positional_eps(seed, lo)`` over all ``chunk`` frames, made on the
+        device; the padded frames' noise is masked out of every valid sample,
+        as in JAX's in-graph route (``_positional_eps_graph``)."""
+        mel_win = np.asarray(mel_win, np.float32)
+        n = mel_win.shape[0]
+        if chunk > n:
+            mel_win = np.pad(mel_win, ((0, chunk - n), (0, 0)))
+        dev = self.device
+        eps = positional_eps([seed], [lo], chunk, int(self.hps.model.inter_channels), dev)
+        o = self._infer(torch.from_numpy(mel_win)[None].to(dev),
+                        torch.full((1,), n, dtype=torch.int64, device=dev), eps, noise_scale,
+                        None if sid is None else torch.as_tensor(np.asarray(sid), device=dev))
+        return o[0, : n * self.hps.data.hop_length, 0].float().cpu().numpy()
+
+    @staticmethod
+    def _check_window(chunk: int, overlap: int) -> int:
+        """The frames a window keeps: ``chunk - 2 * overlap``."""
+        if not 0 <= overlap < chunk // 2:
+            raise ValueError(f"overlap {overlap} must lie in [0, chunk // 2) for chunk {chunk}")
+        return chunk - 2 * overlap
+
+    def mel_to_wav_chunked(self, mel: np.ndarray, chunk: int = 1024, overlap: int = 128,
+                           noise_scale: float = 0.667, sid: Optional[np.ndarray] = None,
+                           seed: int = 0) -> np.ndarray:
+        """Any-length synthesis by fixed-size windows with receptive-field
+        overlap: every output sample depends only on a local mel window (prior
+        WN radius 32 + flow 4 x WN8 radius 64, ~96 frames), so decoding
+        overlapping windows and keeping each one's interior leaves no seam
+        once ``overlap`` covers the radius. One window shape serves any
+        length; the noise is position-keyed, so this equals
+        ``stream_mel_to_wav`` on the same input bit for bit.
+
+        mel: (T, n_mels) or (1, T, n_mels) -> (T * hop,) float32 waveform."""
+        mel = np.asarray(mel, np.float32)
+        if mel.ndim == 3:
+            mel = mel[0]
+        t = mel.shape[0]
+        hop = self.hps.data.hop_length
+        step = self._check_window(chunk, overlap)
+        if t <= step:  # one window, as stream_mel_to_wav's single-window case
+            return self._synth_window(mel, 0, chunk, noise_scale, sid, seed)
+        out = np.zeros(t * hop, np.float32)
+        for start in range(0, t, step):
+            lo, hi = max(0, start - overlap), min(t, start + step + overlap)
+            wav = self._synth_window(mel[lo:hi], lo, chunk, noise_scale, sid, seed)
+            keep_hi = min(hi, start + step)  # absolute end frame of the kept part
+            out[start * hop: keep_hi * hop] = wav[(start - lo) * hop: (keep_hi - lo) * hop]
+        return out
+
+    def stream_mel_to_wav(self, mel_chunks: Iterable[np.ndarray], chunk: int = 1024,
+                          overlap: int = 128, noise_scale: float = 0.667,
+                          sid: Optional[np.ndarray] = None, seed: int = 0) -> Iterator[np.ndarray]:
+        """Streaming synthesis: consume mel pieces ``(T_i, n_mels)`` (or
+        ``(1, T_i, n_mels)``) of any sizes as they arrive, yield waveform
+        pieces in order. The pieces concatenate to exactly
+        ``mel_to_wav_chunked`` of the whole mel with the same (chunk,
+        overlap, seed): windows are cut at the same absolute frames. A window
+        is emitted once ``step + overlap`` frames past its start are buffered
+        (``step = chunk - 2 * overlap``); memory is O(chunk) whatever the
+        stream's length."""
+        hop = self.hps.data.hop_length
+        step = self._check_window(chunk, overlap)
+        buf = np.zeros((0, int(self.hps.data.n_mel_channels)), np.float32)
+        buf0 = 0   # absolute frame of buf[0]
+        start = 0  # absolute frame of the next emission
+
+        def emit(start, end):
+            lo, hi = max(0, start - overlap), min(end, start + step + overlap)
+            wav = self._synth_window(buf[lo - buf0: hi - buf0], lo, chunk, noise_scale, sid, seed)
+            keep_hi = min(hi, start + step)
+            return wav[(start - lo) * hop: (keep_hi - lo) * hop], keep_hi
+
+        for piece in mel_chunks:
+            piece = np.asarray(piece, np.float32)
+            buf = np.concatenate([buf, piece[0] if piece.ndim == 3 else piece])
+            while buf0 + len(buf) >= start + step + overlap:
+                wav, start = emit(start, buf0 + len(buf))
+                yield wav
+                keep_from = max(0, start - overlap - buf0)
+                buf, buf0 = buf[keep_from:], buf0 + keep_from
+        end = buf0 + len(buf)
+        while start < end:  # flush the tail
+            wav, start = emit(start, end)
+            yield wav

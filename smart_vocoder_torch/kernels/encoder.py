@@ -29,6 +29,7 @@ from smart_vocoder_torch.kernels.wn_stack import (
     wn_stack,
     wn_stack_reference,
 )
+from smart_vocoder_torch.ops.noise import prior_sample
 
 PackedStacks = Mapping[str, List[PackedChunk]]  # WN prefix -> its packed chunks
 
@@ -102,19 +103,18 @@ def flow_reverse_apply(state: Mapping[str, torch.Tensor], x: torch.Tensor,
 
 
 def prior_flow_apply(state: Mapping[str, torch.Tensor], mel: torch.Tensor,
-                     x_mask: torch.Tensor, eps: torch.Tensor, noise_scale: float,
+                     x_mask: torch.Tensor, eps: torch.Tensor, noise_scale: float | torch.Tensor,
                      enc_layers: int = 16, n_flows: int = 4, flow_wn_layers: int = 8,
                      hidden: int = 192, use_kernel: bool = True,
                      dtype: torch.dtype = torch.bfloat16,
                      packed: Optional[PackedStacks] = None) -> torch.Tensor:
     """mel -> masked latent z (B, T, inter): ``SynthesizerTrn.infer`` up to
-    the decoder, with ``eps (B, T, inter)`` the prior noise. The noise scale
-    is a value of ``dtype``, as JAX rounds a Python scalar against a bf16
-    array."""
+    the decoder, with ``eps (B, T, inter)`` the prior noise. The noise scale,
+    a float or one per row ``(B,)``, is rounded to ``dtype`` as JAX rounds a
+    Python scalar against a bf16 array (``ops.noise.prior_sample``)."""
     m_p, logs_p = enc_p_apply(state, mel, x_mask, enc_layers, hidden, use_kernel, dtype,
                               packed=packed)
-    scale = torch.tensor(noise_scale, dtype=m_p.dtype, device=m_p.device)
-    z_p = m_p + eps.to(m_p.dtype) * torch.exp(logs_p) * scale
+    z_p = prior_sample(m_p, logs_p, eps, noise_scale)
     z = flow_reverse_apply(state, z_p, x_mask, n_flows, flow_wn_layers, hidden, use_kernel,
                            dtype, packed=packed)
     return z * x_mask.to(z.dtype)

@@ -7,7 +7,9 @@ JAX package's time-major shapes (mel ``(B, T, n_mels)``, waveform
 of a reference ``G_*.pth`` loads with ``strict=True``.
 
 Inference (models.py:331-339): sample ``z_p = m_p + eps * exp(logs_p) *
-noise_scale`` from the mel prior, run the flow in reverse, decode.
+noise_scale`` from the mel prior, run the flow in reverse, decode. Voice
+conversion (models.py:341-349): the posterior of a spectrogram under one
+speaker, through the flow and back under another, decoded as that speaker.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from smart_vocoder_torch.nn import (
     ResBlock2,
     ResidualCouplingLayer,
 )
-from smart_vocoder_torch.ops import sequence_mask
+from smart_vocoder_torch.ops import prior_sample, sequence_mask
 
 
 class MelEncoder(nn.Module):
@@ -56,8 +58,8 @@ class MelEncoder(nn.Module):
 
 
 class PosteriorEncoder(nn.Module):
-    """Linear-spec encoder (ref: models.py:83-112). Inference does not run it;
-    it is here so a full generator state dict loads strictly."""
+    """Linear-spec encoder (ref: models.py:83-112). Synthesis does not run it;
+    voice conversion does."""
 
     def __init__(self, in_channels: int, out_channels: int, hidden_channels: int,
                  kernel_size: int = 5, dilation_rate: int = 1, n_layers: int = 16,
@@ -200,13 +202,13 @@ class SynthesizerTrn(nn.Module):
         return self.emb_g(sid)[:, :, None]
 
     def prior_latent(self, mel: torch.Tensor, lengths: torch.Tensor, eps: torch.Tensor,
-                     noise_scale: float = 1.0, sid: torch.Tensor | None = None):
+                     noise_scale: float | torch.Tensor = 1.0, sid: torch.Tensor | None = None):
         """mel (B, T, n_mels), eps (B, T, inter) -> masked latent z (B, inter, T),
-        mask (B, 1, T), g."""
+        mask (B, 1, T), g. ``noise_scale``: a float or one per row ``(B,)``,
+        rounded to the prior's dtype (``ops.noise.prior_sample``)."""
         g = self.speaker(sid)
         _, m_p, logs_p, mask = self.enc_p(mel.transpose(1, 2), lengths)
-        eps = eps.transpose(1, 2).to(m_p.dtype)
-        z_p = m_p + eps * torch.exp(logs_p) * noise_scale
+        z_p = prior_sample(m_p, logs_p, eps.transpose(1, 2), noise_scale)
         z = self.flow(z_p, mask, g=g, reverse=True)
         return z * mask, mask, g
 
@@ -219,3 +221,24 @@ class SynthesizerTrn(nn.Module):
         z, mask, g = self.prior_latent(mel, lengths, eps, noise_scale, sid)
         o = self.dec(z, g=g)
         return o.transpose(1, 2), mask.transpose(1, 2)
+
+    def voice_conversion(self, spec: torch.Tensor, lengths: torch.Tensor, eps_q: torch.Tensor,
+                         sid_src: torch.Tensor, sid_tgt: torch.Tensor):
+        """Source-speaker spectrogram -> target-speaker waveform (ref:
+        models.py:341-349, which crashes as shipped because ``emb_g`` is
+        undefined; ``smart_vocoder_tpu/models/synthesizer.py:334-353``).
+
+        spec (B, T, spec_channels), eps_q (B, T, inter) the posterior noise ->
+        waveform (B, T*hop, 1), mask (B, T, 1) and (z, z_p, z_hat), each
+        (B, T, inter): the posterior under ``sid_src``, the flow under it, and
+        the reverse flow under ``sid_tgt``."""
+        if self.emb_g is None:
+            raise ValueError("voice_conversion requires use_spk_embed and n_speakers > 0")
+        g_src, g_tgt = self.speaker(sid_src), self.speaker(sid_tgt)
+        z, _, _, mask = self.enc_q(spec.transpose(1, 2), lengths, eps_q.transpose(1, 2),
+                                   g=g_src)
+        z_p = self.flow(z, mask, g=g_src)
+        z_hat = self.flow(z_p, mask, g=g_tgt, reverse=True)
+        o_hat = self.dec(z_hat * mask, g=g_tgt)
+        return (o_hat.transpose(1, 2), mask.transpose(1, 2),
+                tuple(v.transpose(1, 2) for v in (z, z_p, z_hat)))

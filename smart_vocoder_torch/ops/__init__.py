@@ -1,6 +1,7 @@
 """DSP and masking ops (counterpart of ``smart_vocoder_tpu/ops``)."""
 
 from smart_vocoder_torch.ops.melscale import mel_filterbank
+from smart_vocoder_torch.ops.noise import positional_eps, prior_sample
 from smart_vocoder_torch.ops.segments import sequence_mask
 from smart_vocoder_torch.ops.stft import (
     MelConfig,
@@ -14,6 +15,8 @@ __all__ = [
     "MelConfig",
     "mel_filterbank",
     "mel_spectrogram",
+    "positional_eps",
+    "prior_sample",
     "sequence_mask",
     "spec_to_mel",
     "spectrogram",

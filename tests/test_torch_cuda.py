@@ -641,3 +641,24 @@ def test_new_wrappers_reject_what_their_kernels_do_not_take():
     with pytest.raises(ValueError):  # a bf16 output is an option of f32_storage only
         tmrf.mrf_stage(torch.zeros(1, 64, 64, device="cuda"), br, KS, DIL,
                        out_dtype=torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_positional_noise_on_the_card_matches_the_cpu():
+    """``ops.noise.positional_eps`` on the card: the Philox words equal the
+    CPU's bit for bit; the normals (float64 log/cos/sin rounded once to
+    float32) within 1e-6."""
+    from smart_vocoder_torch.ops.noise import philox4x32, positional_eps
+
+    frame = torch.arange(5000, dtype=torch.int64)[:, None] + 2 ** 32 - 2500
+    block = torch.arange(48, dtype=torch.int64)[None, :]
+    key = [torch.tensor(12345), torch.tensor(2 ** 31 + 7)]
+    cpu = philox4x32([frame & 0xFFFFFFFF, frame >> 32, block, torch.tensor(0)], key)
+    card = philox4x32([(frame & 0xFFFFFFFF).cuda(), (frame >> 32).cuda(), block.cuda(),
+                       torch.tensor(0, device="cuda")], [k.cuda() for k in key])
+    for a, b in zip(cpu, card):
+        assert torch.equal(a, b.cpu())
+    seeds, starts = [0, 2 ** 40 + 3, -5], [0, 2 ** 33, 17]
+    got = positional_eps(seeds, starts, 3000, 192, "cuda")
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    assert (got.cpu() - positional_eps(seeds, starts, 3000, 192)).abs().max().item() <= 1e-6

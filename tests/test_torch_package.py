@@ -113,7 +113,9 @@ def test_port_imports_no_jax():
         "        'smart_vocoder_torch.tools.ab_mrf_train',\n"
         "        'smart_vocoder_torch.tools.ab_stage_mma',\n"
         "        'smart_vocoder_torch.tools.ab_pair_pass',\n"
-        "        'smart_vocoder_torch.tools.exp_mrf_variants']\n"
+        "        'smart_vocoder_torch.tools.exp_mrf_variants',\n"
+        "        'smart_vocoder_torch.ops.noise', 'smart_vocoder_torch.serving',\n"
+        "        'smart_vocoder_torch.infer', 'smart_vocoder_torch.tools.bench_streaming']\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'smart_vocoder_tpu'))\n"
