@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch port on one NVIDIA H100: the serving paths, the
-training-kernel A/B and the packed-MRF variants.
+training-kernel A/B, the packed-MRF variants and the GAN train step.
 
     python3 chip_smoke.py
 
@@ -77,6 +77,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
    Profiles of one B = 1 window and one 8-row server step at 384:96. Timing: ``tools/bench_streaming.py`` in a fresh process (first window cold
    against after ``warmup``, the B = 1 operating points, the N = 1, 8, 32
    stream sweep), each table with the card's name and power limit.
+10. the train step (``training.make_train_step``) at full width: iitp_base,
+   B = 16 x 1000 frames, segment 8192 samples, seeded G and D. The f32 and
+   the bf16 step from the same weights and the same explicit noise (each of
+   the five losses of the bf16 step within rel ``BF16_LOSS_REL`` of the f32
+   step's), every metric finite, no kernel of the port launched (the step
+   differentiates the module graph, as JAX's does); a second bf16 step in
+   which D after the step equals D after its own optimizer step (the G
+   phase moves none of its parameters) and after which every G and D
+   parameter has moved; 10 steps on one batch lower ``loss/g/mel``; one
+   conditioned step on iitp_base_ms; one bf16 step under the profiler (top
+   kernels, and the decoder MRF convolutions' share of the card's busy
+   time, forward and backward); then ``tools/bench_train.py``'s bf16 and
+   f32 legs (step ms as the median of 5 interleaved rounds with its range,
+   steps/s, audio x real time, busy share, peak memory, TFLOP/s against the
+   5.58 TFLOP model count).
 
 Every kernel's record carries its bound: the larger of its operations over
 the card's peak for their type (989 TFLOP/s, bf16 tensor cores: every conv
@@ -563,6 +578,178 @@ def live_serving(vocoder_hifi2, vocoder_f32, vocoder_wn0, mel_l1, card: str, rng
         raise RuntimeError(f"bench_streaming: {bench}")
     log(f"live timing (tools/bench_streaming.py, fresh process): {time.time() - t0:.1f} s  "
         f"[{card}]")
+
+
+TRAIN_FRAMES = 1000       # the bucket of the train-step phase (B = train.batch_size)
+# bf16 against f32 on the same weights and noise, set from the readings: on an
+# H100 the five losses of this phase's first step differed by 2.0e-5 (loss/d)
+# to 7.1e-4 (loss/g/kl), so 3e-3 is ~4x the worst sound reading and leaves
+# little room for a bf16-only rounding fault.
+BF16_LOSS_REL = 3e-3
+
+
+def mrf_conv_ms(averages, rows: int, stage_shapes) -> tuple:
+    """Device ms of the decoder's MRF convolutions, (forward, backward), from
+    a profile grouped by input shape: the ``aten::convolution`` and
+    ``aten::convolution_backward`` calls on an input ``(rows, C, T)`` of a
+    stage and a ``(C, C, k)`` weight (no other conv of the step has both)."""
+    fwd = bwd = 0.0
+    for e in averages:
+        if e.key == "aten::convolution":
+            x, w = e.input_shapes[0], e.input_shapes[1]
+        elif e.key == "aten::convolution_backward":
+            x, w = e.input_shapes[1], e.input_shapes[2]
+        else:
+            continue
+        if (len(x) == 3 and len(w) == 3 and tuple(x) in stage_shapes
+                and w[0] == w[1] == x[1]):
+            if e.key == "aten::convolution":
+                fwd += e.device_time_total / 1e3
+            else:
+                bwd += e.device_time_total / 1e3
+    return fwd, bwd
+
+
+def train_step_phase(card: str, dev, hps, hps_ms, rows: int = 16,
+                     frames: int = TRAIN_FRAMES) -> dict:
+    """Phase 10: the GAN train step at full width on the card (module graph on
+    cuDNN autograd; no hand-written kernel is on this path, as none is on
+    JAX's step). Raises on any failure."""
+    import copy
+    import itertools
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from smart_vocoder_torch.kernels import LAUNCHES, reset_launch_counts
+    from smart_vocoder_torch.tools import bench_train
+    from smart_vocoder_torch.training import init_train_state, make_train_step
+
+    def params(state):
+        return itertools.chain(state.net_g.named_parameters(prefix="g"),
+                               state.net_d.named_parameters(prefix="d"))
+
+    def finite(metrics, label):
+        bad = [k for k, v in metrics.items() if not torch.isfinite(v).all()]
+        if bad:
+            raise RuntimeError(f"train step {label}: non-finite metrics {bad}")
+
+    hps_b, hps_f = bench_train.leg_hps(hps, "bf16"), bench_train.leg_hps(hps, "f32")
+    seg = hps.train.segment_size // hps.data.hop_length
+    batch = bench_train.synthetic_batch(hps, rows, frames, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    draws = {"eps_q": torch.randn((rows, frames, hps.model.inter_channels), generator=gen,
+                                  device=dev),
+             "ids_slice": (torch.rand((rows,), generator=gen, device=dev)
+                           * (frames - seg + 1)).int(),
+             "perm": torch.tensor([2, 0, 3, 1], device=dev)}
+    log(f"train step: iitp_base B={rows} x {frames} frames, segment {hps.train.segment_size} "
+        f"samples, seeded G and D  [{card}]")
+
+    # f32 and bf16 from the same weights and noise; no kernel of the port launches
+    s16 = init_train_state(hps_b, seed=SEED, device=dev)
+    s32 = init_train_state(hps_f, device=dev, net_g=copy.deepcopy(s16.net_g),
+                           net_d=copy.deepcopy(s16.net_d))
+    start = {k: p.detach().clone() for k, p in params(s16)}
+    step16, step32 = make_train_step(hps_b, dev), make_train_step(hps_f, dev)
+    reset_launch_counts()
+    s32, m32 = step32(s32, batch, **draws)
+    s16, m16 = step16(s16, batch, **draws)
+    torch.cuda.synchronize()
+    if any(LAUNCHES.values()):
+        raise RuntimeError(f"train step: a hand-written kernel launched: {dict(LAUNCHES)}")
+    finite(m32, "f32")
+    finite(m16, "bf16")
+    for k in bench_train.LOSSES:
+        rel = abs(m16[k].item() - m32[k].item()) / abs(m32[k].item())
+        log(f"  {k}: bf16 {m16[k].item():.6f} f32 {m32[k].item():.6f} rel {rel:.2e} "
+            f"(<= {BF16_LOSS_REL:g}) -> {'ok' if rel <= BF16_LOSS_REL else 'FAIL'}")
+        if rel > BF16_LOSS_REL:
+            raise RuntimeError(f"train step: bf16 {k} off the f32 step by {rel:.2e}")
+    log(f"  grad_norm_g bf16 {m16['grad_norm_g'].item():.4f} f32 {m32['grad_norm_g'].item():.4f}; "
+        f"grad_norm_d bf16 {m16['grad_norm_d'].item():.4f} f32 {m32['grad_norm_d'].item():.4f}")
+    del s32, step32
+
+    # step 2: D after the step is D after its own update (the G phase moves none
+    # of its parameters); after it every G and D parameter has moved
+    after_d, d_step = {}, s16.opt_d.step
+
+    def record_d(*args, **kwargs):
+        out = d_step(*args, **kwargs)
+        after_d.update({k: v.detach().clone() for k, v in s16.net_d.state_dict().items()})
+        return out
+
+    s16.opt_d.step = record_d
+    s16, m = step16(s16, batch, **draws)
+    s16.opt_d.step = d_step
+    finite(m, "bf16 step 2")
+    changed = [k for k, v in s16.net_d.state_dict().items() if not torch.equal(v, after_d[k])]
+    if changed or any(p.grad is not None for p in s16.net_d.parameters()):
+        raise RuntimeError(f"train step: the G phase changed D: {changed[:5]}")
+    still = [k for k, p in params(s16) if torch.equal(p, start[k])]
+    log(f"  D unchanged by the G phase; {len(start) - len(still)}/{len(start)} G and D "
+        f"parameters moved in 2 steps")
+    if still:
+        raise RuntimeError(f"train step: parameters that did not move: {still[:5]}")
+
+    # 10 steps on one batch, the same draws: the mel loss falls
+    mels = []
+    for _ in range(10):
+        s16, m = step16(s16, batch, **draws)
+        finite(m, "bf16 overfit")
+        mels.append(m["loss/g/mel"].item())
+    log(f"  10 steps on one batch: loss/g/mel {mels[0]:.4f} -> {mels[-1]:.4f} "
+        f"({' '.join(f'{v:.3f}' for v in mels)})")
+    if not mels[-1] < mels[0]:
+        raise RuntimeError(f"train step: the mel loss did not fall: {mels}")
+
+    # one step under the profiler: the top kernels, the MRF convolutions' share
+    stages = {(rows, hps.model.upsample_initial_channel // 2 ** (i + 1),
+               seg * int(np.prod(hps.model.upsample_rates[: i + 1])))
+              for i in range(len(hps.model.upsample_rates))}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step16(s16, batch, **draws)
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in averages
+               if e.device_type == DeviceType.CUDA) / 1e3
+    fwd, bwd = mrf_conv_ms(prof.key_averages(group_by_input_shape=True), rows, stages)
+    log(f"profiled train step (bf16): device busy {busy:.1f} ms (its share of the "
+        f"unprofiled step: bench_train below); decoder MRF convolutions {fwd:.2f} ms forward + "
+        f"{bwd:.2f} ms backward = {100 * (fwd + bwd) / busy:.1f}% of the busy time "
+        f"(stages {sorted(stages)})  [{card}]")
+    if not fwd > 0 or not bwd > 0:
+        raise RuntimeError("train step profile: no MRF convolution found")
+    log("profile (train step bf16, top kernels by device time):")
+    for line in averages.table(sort_by="self_device_time_total", row_limit=20).splitlines():
+        log("  " + line)
+    del s16, step16, start
+    torch.cuda.empty_cache()
+
+    # one conditioned step: iitp_base_ms, sid per row
+    hps_ms = bench_train.leg_hps(hps_ms, "bf16")
+    batch_ms = bench_train.synthetic_batch(hps_ms, rows, frames, dev)
+    if batch_ms.sid is None:
+        raise RuntimeError("iitp_base_ms: the batch has no speaker ids")
+    s_ms = init_train_state(hps_ms, seed=SEED, device=dev)
+    s_ms, m = make_train_step(hps_ms, dev)(s_ms, batch_ms, torch.Generator(device=dev)
+                                           .manual_seed(SEED))
+    finite(m, "iitp_base_ms")
+    log(f"  conditioned step (iitp_base_ms, sids {batch_ms.sid[:4].tolist()}...): "
+        f"loss/g/total {m['loss/g/total'].item():.4f}, loss/d/total "
+        f"{m['loss/d/total'].item():.4f}")
+    del s_ms, batch_ms
+    torch.cuda.empty_cache()
+
+    # timing: bf16 and f32 legs, 5 interleaved rounds (tools/bench_train.py)
+    res = bench_train.main(device=dev, hps=hps, frames=frames, rounds=ROUNDS, iters=3,
+                           legs=("bf16", "f32"))
+    for leg, r in res["legs"].items():
+        if not all(np.isfinite(r[k]) for k in ("step_ms", "busy_share", "peak_mem_gib")):
+            raise RuntimeError(f"bench_train {leg}: {r}")
+    return res
 
 
 def main() -> int:
@@ -1243,6 +1430,11 @@ def main() -> int:
 
     # 9. live serving: windows, streams, the multi-stream server, voice conversion
     live_serving(vocoder_hifi2, vocoder_f32, vocoder_wn0, mel_l1, card, rng)
+
+    # 10. the training step on the card
+    train_step_phase(card, dev, hps,
+                     load_config(os.path.join(ROOT, "configs", "iitp_base_ms.json")),
+                     rows=hps.train.batch_size)
 
     kernels = [
         {"name": "mrf_stage", "route": "cuda",

@@ -3,8 +3,13 @@
 Counterpart of ``smart_vocoder_tpu/models/synthesizer.py``. Submodules are
 channel-first ``(B, C, T)``; ``SynthesizerTrn.infer`` takes and returns the
 JAX package's time-major shapes (mel ``(B, T, n_mels)``, waveform
-``(B, T*hop, 1)``). Parameter names follow the reference, so the state dict
-of a reference ``G_*.pth`` loads with ``strict=True``.
+``(B, T*hop, 1)``), as do ``forward`` (training) and ``voice_conversion``.
+Parameter names follow the reference, so the state dict of a reference
+``G_*.pth`` loads with ``strict=True``.
+
+Training (models.py:317-329): the posterior samples ``z`` from the linear
+spectrogram, the flow maps ``z -> z_p``, the mel prior gives ``(m_p,
+logs_p)``, and a random ``segment_size``-frame slice of ``z`` is decoded.
 
 Inference (models.py:331-339): sample ``z_p = m_p + eps * exp(logs_p) *
 noise_scale`` from the mel prior, run the flow in reverse, decode. Voice
@@ -30,7 +35,7 @@ from smart_vocoder_torch.nn import (
     ResBlock2,
     ResidualCouplingLayer,
 )
-from smart_vocoder_torch.ops import prior_sample, sequence_mask
+from smart_vocoder_torch.ops import prior_sample, rand_slice_segments, sequence_mask
 
 
 class MelEncoder(nn.Module):
@@ -172,9 +177,10 @@ class SynthesizerTrn(nn.Module):
                  upsample_kernel_sizes: Sequence[int] = (16, 16, 4, 4),
                  n_speakers: int = 0, gin_channels: int = 0, use_spk_embed: bool = False,
                  enc_layers: int = 16, flow_wn_layers: int = 8, n_mels: int = 80,
-                 weight_norm: bool = True, device=None):
+                 weight_norm: bool = True, device=None, segment_size: int | None = None):
         super().__init__()
         self.inter_channels = inter_channels
+        self.segment_size = segment_size  # frames decoded per training row
         conditioned = bool(use_spk_embed and n_speakers > 0 and gin_channels > 0)
         self.enc_p = MelEncoder(inter_channels, hidden_channels, enc_layers, 5, 1,
                                 n_mels=n_mels, weight_norm=weight_norm, device=device)
@@ -200,6 +206,31 @@ class SynthesizerTrn(nn.Module):
         if self.emb_g is None or sid is None:
             return None
         return self.emb_g(sid)[:, :, None]
+
+    def forward(self, mel: torch.Tensor, mel_lengths: torch.Tensor, spec: torch.Tensor,
+                spec_lengths: torch.Tensor, eps_q: torch.Tensor,
+                ids_slice: torch.Tensor | None = None,
+                generator: torch.Generator | None = None, sid: torch.Tensor | None = None):
+        """Training forward (ref: models.py:317-329), with explicit randomness.
+
+        mel (B, T, n_mels), spec (B, T, spec_channels), eps_q (B, T, inter)
+        the posterior noise; ``ids_slice`` (B,) the slice starts, or drawn
+        from ``generator`` (``ops.rand_slice_segments``). Returns, time-major
+        as the JAX module does: y_hat (B, segment_size*hop, 1), ids_slice
+        (int32), x_mask and y_mask (B, T, 1), and (z, z_p, m_p, logs_p, m_q,
+        logs_q), each (B, T, inter)."""
+        if self.segment_size is None:
+            raise ValueError("SynthesizerTrn.forward needs segment_size (frames)")
+        g = self.speaker(sid)
+        _, m_p, logs_p, x_mask = self.enc_p(mel.transpose(1, 2), mel_lengths)
+        z, m_q, logs_q, y_mask = self.enc_q(spec.transpose(1, 2), spec_lengths,
+                                            eps_q.transpose(1, 2), g=g)
+        z_p = self.flow(z, y_mask, g=g)
+        z_slice, ids_slice = rand_slice_segments(z.transpose(1, 2), spec_lengths,
+                                                 self.segment_size, generator, ids_slice)
+        o = self.dec(z_slice.transpose(1, 2), g=g)
+        return (o.transpose(1, 2), ids_slice, x_mask.transpose(1, 2), y_mask.transpose(1, 2),
+                tuple(v.transpose(1, 2) for v in (z, z_p, m_p, logs_p, m_q, logs_q)))
 
     def prior_latent(self, mel: torch.Tensor, lengths: torch.Tensor, eps: torch.Tensor,
                      noise_scale: float | torch.Tensor = 1.0, sid: torch.Tensor | None = None):

@@ -4,8 +4,10 @@
 from smart_vocoder_torch.nn.conv import (
     LRELU_SLOPE,
     Conv1d,
+    Conv2d,
     ConvTranspose1d,
     fold_weight_norm,
+    set_compute_dtype,
 )
 from smart_vocoder_torch.nn.coupling import Flip, ResidualCouplingLayer, flip_channels
 from smart_vocoder_torch.nn.resblock import ResBlock1, ResBlock2
@@ -14,6 +16,7 @@ from smart_vocoder_torch.nn.wn import WN, gated_activation
 __all__ = [
     "LRELU_SLOPE",
     "Conv1d",
+    "Conv2d",
     "ConvTranspose1d",
     "Flip",
     "ResBlock1",
@@ -23,4 +26,5 @@ __all__ = [
     "flip_channels",
     "fold_weight_norm",
     "gated_activation",
+    "set_compute_dtype",
 ]

@@ -11,11 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from smart_vocoder_torch.nn.conv import LRELU_SLOPE, Conv1d
-
-
-def _get_padding(kernel_size: int, dilation: int = 1) -> int:
-    return int((kernel_size * dilation - dilation) / 2)
+from smart_vocoder_torch.nn.conv import LRELU_SLOPE, Conv1d, get_padding
 
 
 class ResBlock1(nn.Module):
@@ -26,11 +22,11 @@ class ResBlock1(nn.Module):
                  device=None):
         super().__init__()
         self.convs1 = nn.ModuleList(
-            Conv1d(channels, channels, kernel_size, padding=_get_padding(kernel_size, d),
+            Conv1d(channels, channels, kernel_size, padding=get_padding(kernel_size, d),
                    dilation=d, weight_norm=weight_norm, device=device)
             for d in dilation)
         self.convs2 = nn.ModuleList(
-            Conv1d(channels, channels, kernel_size, padding=_get_padding(kernel_size),
+            Conv1d(channels, channels, kernel_size, padding=get_padding(kernel_size),
                    weight_norm=weight_norm, device=device)
             for _ in dilation)
 
@@ -50,7 +46,7 @@ class ResBlock2(nn.Module):
                  device=None):
         super().__init__()
         self.convs = nn.ModuleList(
-            Conv1d(channels, channels, kernel_size, padding=_get_padding(kernel_size, d),
+            Conv1d(channels, channels, kernel_size, padding=get_padding(kernel_size, d),
                    dilation=d, weight_norm=weight_norm, device=device)
             for d in dilation)
 

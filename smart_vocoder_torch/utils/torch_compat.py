@@ -7,6 +7,10 @@ reimplemented here without flax):
 
   ('enc_q', 'enc', 'in_layers_3', 'weight_v')  ->  enc_q.enc.in_layers.3.weight_v
   ('emb_g', 'embedding')                       ->  emb_g.weight
+  ('discriminators_1', 'convs_0', 'weight_v')  ->  discriminators.1.convs.0.weight_v
+
+The discriminator's spectral-norm state (the JAX ``spectral`` collection,
+``weight_u`` leaves) maps the same way onto the port's ``weight_u`` buffers.
 """
 
 from __future__ import annotations
@@ -44,6 +48,15 @@ def state_dict_from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Ten
     ``state_dict`` (float32 tensors, layouts unchanged)."""
     return {path_to_torch_key(path): torch.from_numpy(np.array(v, np.float32))
             for path, v in _flatten(params)}
+
+
+def discriminator_state_dict_from_jax(params: Mapping[str, Any],
+                                      spectral: Mapping[str, Any] | None = None
+                                      ) -> Dict[str, torch.Tensor]:
+    """A JAX discriminator's ``params`` and, under spectral norm, its
+    ``spectral`` collection -> one flat torch ``state_dict`` (parameters and
+    ``weight_u`` buffers) for ``MultiPeriodDiscriminator.load_state_dict``."""
+    return {**state_dict_from_jax_params(params), **state_dict_from_jax_params(spectral or {})}
 
 
 def _ignorable(key: str) -> bool:

@@ -662,3 +662,55 @@ def test_positional_noise_on_the_card_matches_the_cpu():
     got = positional_eps(seeds, starts, 3000, 192, "cuda")
     assert got.device.type == "cuda" and got.dtype == torch.float32
     assert (got.cpu() - positional_eps(seeds, starts, 3000, 192)).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu():
+    """One f32 train step at a tiny config (tests/test_torch_train_step.py's)
+    on the card and on the CPU from the same weights and draws: every scalar
+    metric within rel 1e-4 (cuDNN against oneDNN, TF32 off). A bf16 step on
+    the card is finite and no kernel of the port launches."""
+    import copy
+
+    from smart_vocoder_torch.config import HParams, validate
+    from smart_vocoder_torch.kernels import LAUNCHES, reset_launch_counts
+    from smart_vocoder_torch.tools.bench_train import synthetic_batch
+    from smart_vocoder_torch.training import init_train_state, make_train_step
+
+    cfg = {
+        "train": dict(learning_rate=2e-4, betas=[0.8, 0.99], eps=1e-9, batch_size=2,
+                      fp16_run=False, lr_decay=0.999875, segment_size=2048, c_mel=45,
+                      c_kl=1.0, seed=1234),
+        "data": dict(max_wav_value=32768.0, sampling_rate=22050, filter_length=1024,
+                     hop_length=256, win_length=1024, n_mel_channels=80, mel_fmin=0.0,
+                     mel_fmax=None, n_speakers=4),
+        "model": dict(inter_channels=32, hidden_channels=32, resblock="1",
+                      resblock_kernel_sizes=[3, 7], resblock_dilation_sizes=[[1, 3], [1, 3]],
+                      upsample_rates=[8, 8, 2, 2], upsample_initial_channel=64,
+                      upsample_kernel_sizes=[16, 16, 4, 4], gin_channels=16,
+                      use_spk_embed=True, enc_layers=2, flow_wn_layers=2,
+                      disc_width_mult=0.125),
+    }
+    hps = validate(HParams(**cfg))
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+    batch = synthetic_batch(hps, 2, 32, cpu)
+    gen = torch.Generator().manual_seed(3)
+    draws = {"eps_q": torch.randn((2, 32, 32), generator=gen),
+             "ids_slice": torch.tensor([5, 20], dtype=torch.int32),
+             "perm": torch.tensor([1, 3, 0, 2])}
+    host = init_train_state(hps, seed=7, device=cpu)
+    card = init_train_state(hps, device=dev, net_g=copy.deepcopy(host.net_g),
+                            net_d=copy.deepcopy(host.net_d))
+    _, want = make_train_step(hps, device=cpu)(host, batch, **draws)
+    reset_launch_counts()
+    _, got = make_train_step(hps, device=dev)(card, batch, **draws)
+    for k, w in want.items():
+        if w.ndim == 0:
+            assert abs(got[k].item() - w.item()) <= 1e-4 * abs(w.item()), (k, got[k], w)
+    hps.tpu.bf16_run = True
+    bf16 = init_train_state(hps, device=dev, net_g=copy.deepcopy(host.net_g),
+                            net_d=copy.deepcopy(host.net_d))
+    _, m = make_train_step(hps, device=dev)(bf16, batch, torch.Generator(dev).manual_seed(1))
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(v).all() for v in m.values())
+    assert not any(LAUNCHES.values()), dict(LAUNCHES)

@@ -115,7 +115,11 @@ def test_port_imports_no_jax():
         "        'smart_vocoder_torch.tools.ab_pair_pass',\n"
         "        'smart_vocoder_torch.tools.exp_mrf_variants',\n"
         "        'smart_vocoder_torch.ops.noise', 'smart_vocoder_torch.serving',\n"
-        "        'smart_vocoder_torch.infer', 'smart_vocoder_torch.tools.bench_streaming']\n"
+        "        'smart_vocoder_torch.infer', 'smart_vocoder_torch.tools.bench_streaming',\n"
+        "        'smart_vocoder_torch.losses', 'smart_vocoder_torch.models.discriminator',\n"
+        "        'smart_vocoder_torch.training', 'smart_vocoder_torch.training.step',\n"
+        "        'smart_vocoder_torch.training.optim', 'smart_vocoder_torch.utils.flops',\n"
+        "        'smart_vocoder_torch.tools.bench_train']\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'smart_vocoder_tpu'))\n"
