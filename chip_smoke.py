@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA H100: the serving paths, the
-training-kernel A/B, the packed-MRF variants and the GAN train step.
+training-kernel A/B, the packed-MRF variants, the GAN train step and the
+training runtime.
 
     python3 chip_smoke.py
 
@@ -92,6 +93,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
    f32 legs (step ms as the median of 5 interleaved rounds with its range,
    steps/s, audio x real time, busy share, peak memory, TFLOP/s against the
    5.58 TFLOP model count).
+11. the training runtime, on a synthetic corpus (``tools/make_corpus.py``:
+   96 mono PCM16 harmonic tones of 345-1000 frames, every iitp_base bucket
+   from 300 to 1000 used, 7 batches an epoch) with iitp_base bf16, B = 16,
+   segment 8192, ``eval_interval`` 20, ``keep_ckpts`` 2. Run A: ``python -m
+   smart_vocoder_torch.train --max-steps 40`` in a subprocess (a loss line
+   every step, all finite; ``eval/mel_l1`` at steps 0 and 20; pairs 20 and
+   40 kept). A's step-20 pair restored in this process equals the files bit
+   for bit (G, D, both AdamW states; step and epoch). Run B resumes from that
+   pair in a second process, in a 1-rank NCCL group (torchrun's variables
+   set in its environment: the resume check, the gradients and the metrics
+   go through NCCL's all-reduce), and runs to 40: its first step's five losses
+   within rel ``RESUME_LOSS_REL`` of A's (printed: whether bit-equal, and
+   each later step's drift); its last ``G_*.pth`` loads strictly into a fresh
+   ``SynthesizerTrn``. Timing, in this process (``LoopProbe``): 30 steps at
+   ``log_interval`` 5, then the same with ``tpu.cache_specs`` on: the loop's
+   step ms (median and range from step 5, the eval/save step left out), how
+   long ``next()`` on the loader blocks, the host's build of an item, its
+   collation and pinning, eval and save ms, the pair's size, peak memory,
+   audio trained a wall second from the first batch in hand to the last
+   (evals and saves included; beside it the same over the steady steps);
+   20 steps with steps 10-19 under the loop's ``StepProfiler`` (the card's
+   busy share from its Chrome trace); an isolated bf16 step with cuDNN's
+   algorithm search off, as the loop runs, beside phase 10's
+   ``tools/bench_train.py``. A conditioned run of 5 steps on iitp_base_ms
+   from ``path|sid`` lists. The corpus and runs live in a temporary
+   directory, removed at the end.
 
 Every kernel's record carries its bound: the larger of its operations over
 the card's peak for their type (989 TFLOP/s, bf16 tensor cores: every conv
@@ -752,11 +779,474 @@ def train_step_phase(card: str, dev, hps, hps_ms, rows: int = 16,
     return res
 
 
+# phase 11: the training runtime (data, checkpoints, the loop, the CLI) on the card
+RUNTIME_CLIPS = 96         # MIN_FRAMES-MAX_FRAMES: every iitp_base bucket from 300 to 1000
+MIN_FRAMES, MAX_FRAMES = 345, 1000
+RESUME_STEPS, RESUME_FROM = 40, 20
+TIMING_STEPS = 30
+PROFILE_START, PROFILE_STEPS = 10, 10
+RESUME_LOSS_REL = 1e-4
+STEADY_FROM = 5            # step statistics over steps STEADY_FROM .. the last
+
+
+def loss_lines(log_path: str) -> dict:
+    """{step: [loss_d, loss_g, fm, mel, kl]} from the loop's loss list lines
+    (the parse of tests/test_multiprocess.py:_loss_trajectory)."""
+    import ast
+    import re
+
+    out = {}
+    with open(log_path) as f:
+        for line in f:
+            m = re.search(r"(\[[-0-9eE+., ]+\])\s*$", line)
+            if m:
+                vals = ast.literal_eval(m.group(1))
+                if isinstance(vals, list) and len(vals) == 7:
+                    out[int(vals[5])] = vals[:5]
+    return out
+
+
+def eval_lines(log_path: str) -> dict:
+    import re
+
+    with open(log_path) as f:
+        return {int(m.group(1)): float(m.group(2)) for m in
+                re.finditer(r"eval step (\d+): mel_l1 (\S+)", f.read())}
+
+
+def check_run_log(model_dir: str, steps, label: str) -> dict:
+    """The run's loss lines cover ``steps`` and are finite; so is every
+    scalar of the plain writer, where it wrote one. Returns the loss lines."""
+    import math
+
+    log_path = os.path.join(model_dir, "train.log")
+    traj = loss_lines(log_path)
+    if sorted(traj) != list(steps):
+        raise RuntimeError(f"{label}: loss lines for steps {sorted(traj)}, expected {list(steps)}")
+    if not all(math.isfinite(v) for losses in traj.values() for v in losses):
+        raise RuntimeError(f"{label}: a non-finite loss: {traj}")
+    jsonl = os.path.join(model_dir, "scalars.jsonl")
+    if os.path.exists(jsonl):
+        with open(jsonl) as f:
+            bad = [ln for ln in f if not math.isfinite(json.loads(ln)["value"])]
+        if bad:
+            raise RuntimeError(f"{label}: non-finite scalars: {bad[:3]}")
+    return traj
+
+
+def run_train_cli(work: str, cfg_path: str, model: str, max_steps: int, extra_env=None,
+                  timeout: int = 600) -> tuple:
+    """``python -m smart_vocoder_torch.train`` in a subprocess from ``work``;
+    returns (model_dir, wall seconds, stdout). Raises if it fails."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (ROOT, env.get("PYTHONPATH")) if p)
+    env.update(extra_env or {})
+    cmd = [sys.executable, "-m", "smart_vocoder_torch.train", "-c", cfg_path, "-m", model,
+           "--max-steps", str(max_steps)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=work, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"train CLI ({model}): exit {proc.returncode}\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return os.path.join(work, "logs", model), time.perf_counter() - t0, proc.stdout
+
+
+class LoopProbe:
+    """Timers around one in-process run of ``training.loop.run``: how long
+    each ``next()`` on the train loader blocks and when it returns, the host
+    time of each item and collation, each eval and each save (with its
+    bytes), and the audio each step consumes. Installed by subclassing the
+    loop's loader, dataset and checkpoint manager and wrapping
+    ``pad_to_bucket`` and ``_evaluate``; ``close`` puts them back."""
+
+    def __init__(self, dev, hop: int, sr: int):
+        from smart_vocoder_torch.data import pipeline
+        from smart_vocoder_torch.training import loop as loop_lib
+        from smart_vocoder_torch.training.step import Batch
+
+        self.dev, self.hop, self.sr = dev, hop, sr
+        self.waits, self.got, self.audio_s, self.items, self.pads = [], [], [], [], []
+        self.pins, self.copies, self.evals, self.saves, self.save_bytes = [], [], [], [], []
+        self._saved = [(loop_lib, n, getattr(loop_lib, n)) for n in
+                       ("BucketedLoader", "AudioSpecDataset", "CheckpointManager", "_evaluate")]
+        self._saved += [(Batch, "to", Batch.to), (Batch, "pin_memory", Batch.pin_memory)]
+        self._saved.append((pipeline, "pad_to_bucket", pipeline.pad_to_bucket))
+        probe = self
+        to, pin_memory = Batch.to, Batch.pin_memory
+
+        def timed_to(batch, device, non_blocking=False):
+            t0 = time.perf_counter()
+            out = to(batch, device, non_blocking)
+            if non_blocking:  # the loader's copy of a pinned batch
+                probe.copies.append(time.perf_counter() - t0)
+            return out
+
+        def timed_pin(batch):
+            t0 = time.perf_counter()
+            out = pin_memory(batch)
+            probe.pins.append(time.perf_counter() - t0)
+            return out
+
+        Batch.to, Batch.pin_memory = timed_to, timed_pin
+
+        class Loader(loop_lib.BucketedLoader):
+            def iter_from(self, skip=0):
+                it = super().iter_from(skip)
+                if not self.sampler.shuffle:  # the eval loader
+                    return it
+                return probe._timed(it, list(iter(self.sampler))[skip:], self.sampler.lengths)
+
+        class Dataset(loop_lib.AudioSpecDataset):
+            def __getitem__(self, index):
+                t0 = time.perf_counter()
+                out = super().__getitem__(index)
+                probe.items.append(time.perf_counter() - t0)
+                return out
+
+        class Manager(loop_lib.CheckpointManager):
+            def save(self, step, state, epoch, learning_rate):
+                probe.sync()
+                t0 = time.perf_counter()
+                super().save(step, state, epoch, learning_rate)
+                probe.saves.append(time.perf_counter() - t0)
+                probe.save_bytes.append(sum(os.path.getsize(self.path(t, step)) for t in "GD"))
+
+        def pad(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = probe._saved[-1][2](*args, **kwargs)
+            probe.pads.append(time.perf_counter() - t0)
+            return out
+
+        evaluate = loop_lib._evaluate
+
+        def timed_evaluate(*args, **kwargs):
+            probe.sync()
+            t0 = time.perf_counter()
+            evaluate(*args, **kwargs)
+            probe.sync()
+            probe.evals.append(time.perf_counter() - t0)
+
+        loop_lib.BucketedLoader, loop_lib.AudioSpecDataset = Loader, Dataset
+        loop_lib.CheckpointManager, loop_lib._evaluate = Manager, timed_evaluate
+        pipeline.pad_to_bucket = pad
+
+    def sync(self):
+        import torch
+
+        torch.cuda.synchronize(self.dev)
+
+    def _timed(self, it, batches, lengths):
+        try:
+            for idxs in batches:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                t1 = time.perf_counter()
+                self.waits.append(t1 - t0)
+                self.got.append(t1)
+                self.audio_s.append(sum(lengths[i] for i in idxs) * self.hop / self.sr)
+                yield batch
+        finally:
+            it.close()
+
+    def close(self):
+        for mod, name, value in self._saved:
+            setattr(mod, name, value)
+
+
+def steady_steps(probe: LoopProbe, eval_steps) -> list:
+    """Indices of the steps, from STEADY_FROM to the second to last, whose
+    interval (this step's batch in hand to the next's) holds no eval or save."""
+    return [i for i in range(STEADY_FROM, len(probe.got) - 1) if i not in eval_steps]
+
+
+def trace_busy(trace_path: str) -> tuple:
+    """(busy ms, window ms) of a Chrome trace: the union of the card's kernel,
+    copy and set intervals, and the span of every event in it."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    gpu = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, -1e30
+    for a, b in gpu:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    window = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
+    return busy / 1e3, window / 1e3
+
+
+def isolated_step_ms(hps, dev, frames: int, iters: int = 10) -> float:
+    """Host ms a bf16 step on one synthetic ``frames`` batch takes, with
+    cuDNN's algorithm search off, as in the loop (mean of ``iters`` after 2)."""
+    import torch
+
+    from smart_vocoder_torch.tools import bench_train
+    from smart_vocoder_torch.training import init_train_state, make_train_step
+
+    state = init_train_state(hps, seed=SEED, device=dev)
+    step = make_train_step(hps, dev)
+    batch = bench_train.synthetic_batch(hps, hps.train.batch_size, frames, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for _ in range(2):
+        state, _ = step(state, batch, gen)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        state, m = step(state, batch, gen)
+    m["loss/g/total"].item()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def training_runtime_phase(card: str, dev, base_cfg: dict, ms_cfg: dict,
+                           isolated_ms: float) -> dict:
+    """Phase 11: the training runtime on the card, through the ``train``
+    entry point and ``training.loop.run``. Raises on any failure."""
+    import copy
+    import math
+    import shutil
+    import statistics
+    import tempfile
+
+    import torch
+
+    from smart_vocoder_torch.config import HParams, validate
+    from smart_vocoder_torch.models import build_synthesizer
+    from smart_vocoder_torch.tools.make_corpus import write_corpus
+    from smart_vocoder_torch.training import init_train_state
+    from smart_vocoder_torch.training import loop as loop_lib
+    from smart_vocoder_torch.utils.checkpoint import CheckpointManager
+    from smart_vocoder_torch.utils.torch_compat import (
+        load_reference_generator,
+        load_torch_checkpoint,
+    )
+
+    work = tempfile.mkdtemp(prefix="svt_runtime_")
+    walls, t_mark = {}, [time.perf_counter()]
+
+    def mark(part):  # wall seconds since the previous mark
+        now = time.perf_counter()
+        walls[part], t_mark[0] = now - t_mark[0], now
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False  # as in the CLI's process (the loop leaves it off)
+    try:
+        t0 = time.perf_counter()
+        files = write_corpus(os.path.join(work, "corpus"), RUNTIME_CLIPS, MIN_FRAMES, MAX_FRAMES)
+        files_ms = write_corpus(os.path.join(work, "corpus_ms"), 16, MIN_FRAMES, MAX_FRAMES,
+                                speakers=int(ms_cfg["data"]["n_speakers"]), seed=SEED + 1)
+        log(f"training runtime: {RUNTIME_CLIPS} clips of {MIN_FRAMES}-{MAX_FRAMES} frames "
+            f"written in {time.perf_counter() - t0:.1f} s")
+
+        def config(name, base, filelist, **train):
+            cfg = copy.deepcopy(base)
+            cfg["train"].update(eval_interval=20, fp16_run=True, **train)
+            cfg["data"].update(training_files=filelist, validation_files=filelist)
+            cfg.setdefault("tpu", {}).update(bf16_run=True, keep_ckpts=2)
+            path = os.path.join(work, f"{name}.json")
+            with open(path, "w") as f:
+                json.dump(cfg, f)
+            return path, cfg
+
+        def hps_of(cfg, name):
+            hps = validate(HParams(**copy.deepcopy(cfg)))
+            hps.model_dir = os.path.join(work, "logs", name)
+            return hps
+
+        mark("corpus")
+        # ---- resume legs: A straight, B from A's step-RESUME_FROM pair -------------
+        total, mid = RESUME_STEPS, RESUME_FROM
+        cfg_path, cfg = config("resume", base_cfg, files, log_interval=1)
+        dir_a, wall_a, _ = run_train_cli(work, cfg_path, "A", total)
+        traj_a = check_run_log(dir_a, range(total), "run A")
+        with open(os.path.join(dir_a, "train.log")) as f:
+            first = f.readline().strip()
+        log(f"  run A: {total} steps in {wall_a:.1f} s (process included); train.log's first "
+            f"line: {first.split(chr(9))[-1]}")
+        evals_a = eval_lines(os.path.join(dir_a, "train.log"))
+        want_evals = list(range(0, total, 20))
+        if sorted(evals_a) != want_evals or not all(map(math.isfinite, evals_a.values())):
+            raise RuntimeError(f"run A: eval/mel_l1 at {evals_a}, expected steps {want_evals}")
+        log(f"  run A eval/mel_l1: {evals_a}")
+        mngr_a = CheckpointManager(dir_a)
+        if mngr_a.steps() != [mid, total]:
+            raise RuntimeError(f"run A kept pairs {mngr_a.steps()}, expected [{mid}, {total}]")
+
+        # restore: the state read back equals, bit for bit, what A wrote
+        hps_b16 = hps_of(cfg, "restore")
+        state = init_train_state(hps_b16, seed=SEED + 7, device=dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, epoch, step = mngr_a.restore(state, step=mid)
+        torch.cuda.synchronize(dev)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        payload = {t: load_torch_checkpoint(mngr_a.path(t, mid)) for t in "GD"}
+
+        def same(a, b):
+            if torch.is_tensor(a):
+                return torch.is_tensor(b) and a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+            if isinstance(a, dict):
+                return set(a) == set(b) and all(same(a[k], b[k]) for k in a)
+            if isinstance(a, (list, tuple)):
+                return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+            return a == b
+
+        for tag, net, opt in (("G", state.net_g, state.opt_g), ("D", state.net_d, state.opt_d)):
+            if not (same(net.state_dict(), payload[tag]["model"])
+                    and same(opt.state_dict(), payload[tag]["optimizer"])):
+                raise RuntimeError(f"restore of {tag}_{mid}.pth is not bit-equal to the file")
+        if state.step != mid + 1:
+            raise RuntimeError(f"restored step {state.step}, expected {mid + 1}")
+        log(f"  restore of A's step-{mid} pair: G, D and both AdamW states bit-equal to the "
+            f"files (step {state.step}, epoch {epoch}); restore {restore_ms:.0f} ms  [{card}]")
+        del state
+        torch.cuda.empty_cache()
+
+        os.makedirs(os.path.join(work, "logs", "B"))
+        for tag in "GD":
+            shutil.copy(mngr_a.path(tag, mid), os.path.join(work, "logs", "B"))
+        # run B also takes the all-reduce path: a 1-rank NCCL group from torchrun's variables
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        dist_env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                    "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+        dir_b, wall_b, _ = run_train_cli(work, cfg_path, "B", total, extra_env=dist_env)
+        traj_b = check_run_log(dir_b, range(mid + 1, total), "run B")
+        with open(os.path.join(dir_b, "train.log")) as f:
+            log_b = f.read()
+        if f"resumed from step {mid + 1}" not in log_b:
+            raise RuntimeError("run B did not resume from A's checkpoint")
+        group = next((ln for ln in log_b.splitlines() if "data parallel:" in ln), "")
+        if "torch.distributed nccl: rank 0 of 1" not in group:
+            raise RuntimeError(f"run B: no NCCL group: {group!r}")
+        names = ("loss/d/total", "loss/g/total", "loss/g/fm", "loss/g/mel", "loss/g/kl")
+        first_rel = [abs(b - a) / abs(a) for a, b in zip(traj_a[mid + 1], traj_b[mid + 1])]
+        per_step = [max(abs(b - a) / abs(a) for a, b in zip(traj_a[s], traj_b[s]))
+                    for s in sorted(traj_b)]
+        bit = traj_a[mid + 1] == traj_b[mid + 1]
+        log(f"  run B ({group.split('data parallel: ')[-1].strip()}; resumed at step {mid + 1}, "
+            f"{wall_b:.1f} s): first step's losses vs A's "
+            + ", ".join(f"{n} rel {r:.1e}" for n, r in zip(names, first_rel))
+            + f" -> {'bit-equal' if bit else 'not bit-equal'}; the worst of the five at steps "
+            f"{mid + 1}-{total - 1}: " + " ".join(f"{r:.0e}" for r in per_step))
+        if max(first_rel) > RESUME_LOSS_REL:
+            raise RuntimeError(f"run B's first step is off run A's by {max(first_rel):.2e}")
+        net = build_synthesizer(hps_b16)
+        last = CheckpointManager(dir_b).latest_step()
+        load_reference_generator(os.path.join(dir_b, f"G_{last}.pth"), net)
+        log(f"  G_{last}.pth of run B loads strictly into a fresh SynthesizerTrn")
+
+        mark("resume legs")
+        # ---- timing legs, in this process ------------------------------------------
+        def timed_leg(name, steps, **tpu):
+            leg_path, leg_cfg = config(name, base_cfg, files, log_interval=5)
+            leg_cfg["tpu"].update(tpu)
+            hps = hps_of(leg_cfg, name)
+            probe = LoopProbe(dev, hps.data.hop_length, hps.data.sampling_rate)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            try:
+                loop_lib.run(hps, max_steps=steps, device=dev)
+            finally:
+                probe.close()
+            probe.wall = time.perf_counter() - t0
+            probe.peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+            probe.hps = hps
+            return probe
+
+        def report(label, probe, evals_at):
+            idx = steady_steps(probe, evals_at)
+            iv = [(probe.got[i + 1] - probe.got[i]) * 1e3 for i in idx]
+            waits = [probe.waits[i] * 1e3 for i in range(STEADY_FROM, len(probe.waits))]
+            per_item = statistics.median(probe.items) * 1e3
+            rows = probe.hps.train.batch_size
+            copies = [c * 1e3 for c in probe.copies[STEADY_FROM:]] or [float("nan")]
+            pins = [c * 1e3 for c in probe.pins] or [float("nan")]
+            rec = {
+                "step_ms": statistics.median(iv), "step_ms_min": min(iv), "step_ms_max": max(iv),
+                "step_ms_mean": statistics.fmean(iv), "steps": len(iv),
+                "wait_ms": statistics.median(waits), "wait_ms_max": max(waits),
+                "copy_ms": statistics.median(copies), "pin_ms": statistics.median(pins),
+                "item_ms": per_item, "pad_ms": statistics.median(probe.pads) * 1e3,
+                "batch_build_ms": per_item * rows + statistics.median(probe.pads) * 1e3,
+                "eval_ms": [e * 1e3 for e in probe.evals],
+                "save_ms": [s * 1e3 for s in probe.saves],
+                "ckpt_mb": probe.save_bytes[-1] / 1e6, "peak_gib": probe.peak_gib,
+                # every step from the first batch in hand to the last, evals and saves included
+                "audio_x": sum(probe.audio_s[:-1]) / (probe.got[-1] - probe.got[0]),
+                "audio_x_steady": sum(probe.audio_s[i] for i in idx) / (sum(iv) / 1e3),
+            }
+            log(f"  {label}: loop step median {rec['step_ms']:.1f} ms (range "
+                f"{rec['step_ms_min']:.1f}-{rec['step_ms_max']:.1f}, mean "
+                f"{rec['step_ms_mean']:.1f}, {rec['steps']} steps from {STEADY_FROM}, the "
+                f"eval/save steps left out); loader wait median {rec['wait_ms']:.2f} ms, max "
+                f"{rec['wait_ms_max']:.2f} (of it, the non-blocking copy's host call "
+                f"{rec['copy_ms']:.2f}); host build {rec['item_ms']:.1f} ms an item, "
+                f"{rec['pad_ms']:.1f} ms collation, {rec['pin_ms']:.1f} ms pinning, "
+                f"{rec['batch_build_ms']:.0f} ms of host work a batch of {rows} (8 threads); eval "
+                + "/".join(f"{e:.0f}" for e in rec["eval_ms"]) + " ms; save "
+                + "/".join(f"{s:.0f}" for s in rec["save_ms"])
+                + f" ms for {rec['ckpt_mb']:.0f} MB a pair; peak {rec['peak_gib']:.2f} GiB; "
+                f"{rec['audio_x']:.1f} s of audio trained a wall second over steps 0-"
+                f"{len(probe.got) - 2}, evals and saves included ({rec['audio_x_steady']:.1f} "
+                f"over the steady steps alone)  [{card}]")
+            return rec
+
+        leg = timed_leg("timing", TIMING_STEPS)
+        rec_plain = report("timing leg", leg, evals_at={0, 20})
+        leg = timed_leg("timing_cached", TIMING_STEPS, cache_specs=True)
+        rec_cached = report("timing leg, tpu.cache_specs on (epoch 1 writes the cache)", leg,
+                            evals_at={0, 20})
+        start, n = PROFILE_START, PROFILE_STEPS
+        leg = timed_leg("profile", start + n, profile_steps=n, profile_start_step=start)
+        trace = os.path.join(leg.hps.model_dir, "profile", f"trace_{start}_{start + n}.json")
+        busy_ms, window_ms = trace_busy(trace)
+        busy_step = busy_ms / n
+        log(f"  profiled steps {start}-{start + n - 1} of the loop: card busy {busy_ms:.0f} of "
+            f"{window_ms:.0f} ms ({100 * busy_ms / window_ms:.1f}%, the profiler's host cost "
+            f"included); {busy_step:.1f} ms a step = {100 * busy_step / rec_plain['step_ms']:.1f}% "
+            f"of the unprofiled loop step  [{card}]")
+        iso_off = isolated_step_ms(hps_b16, dev, MAX_FRAMES)
+        log(f"  isolated bf16 step at {MAX_FRAMES} frames: {iso_off:.1f} ms with cuDNN's "
+            f"algorithm search off (as the loop), tools/bench_train.py {isolated_ms:.1f} ms with "
+            f"it on (phase 10)  [{card}]")
+
+        mark("timing, profile and isolated legs")
+        # ---- a conditioned run: iitp_base_ms, path|sid filelists ---------------------
+        ms_path, ms_cfg2 = config("ms", ms_cfg, files_ms, log_interval=1)
+        hps_ms = hps_of(ms_cfg2, "ms")
+        loop_lib.run(hps_ms, max_steps=5, device=dev)
+        check_run_log(hps_ms.model_dir, range(5), "conditioned run")
+        evals_ms = eval_lines(os.path.join(hps_ms.model_dir, "train.log"))
+        if list(evals_ms) != [0]:
+            raise RuntimeError(f"conditioned run: eval lines {evals_ms}")
+        log(f"  conditioned run (iitp_base_ms, path|sid lists, 5 steps): losses finite, "
+            f"eval/mel_l1 {evals_ms[0]:.4f}")
+
+        mark("conditioned run")
+        log("  phase 11 wall: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+            + f"; {sum(walls.values()):.1f} s in all")
+        return {"plain": rec_plain, "cached": rec_cached, "busy_ms_step": busy_step,
+                "restore_ms": restore_ms, "isolated_off_ms": iso_off,
+                "first_rel": first_rel, "bit_equal": bit}
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
+    t_start = time.time()
     sys.path.insert(0, ROOT)
     from smart_vocoder_torch.config import load_config
     from smart_vocoder_torch.inference import Vocoder, set_precision_flags
@@ -792,6 +1282,7 @@ def main() -> int:
     torch.backends.cudnn.benchmark = True
     dev = torch.device("cuda")
 
+    log(f"-- phase 2 starts at {time.time() - t_start:.0f} s")
     # 2. build
     t0 = time.time()
     so = build()
@@ -824,6 +1315,7 @@ def main() -> int:
     ks = tuple(hps.model.resblock_kernel_sizes)
     dil = tuple(hps.model.resblock_dilation_sizes[0])
 
+    log(f"-- phase 3 starts at {time.time() - t_start:.0f} s")
     # 3. kernels against their plain versions at the main-path shapes
     rng = np.random.default_rng(SEED)
     records = {}
@@ -1212,6 +1704,7 @@ def main() -> int:
             del br32
         del x, g, xd, gd, dx, dws, wdx, wdws, replay, want_replay, steps, got
 
+    log(f"-- phase 4 starts at {time.time() - t_start:.0f} s")
     # 4. the slice at full width
     n_mels, inter = hps.data.n_mel_channels, hps.model.inter_channels
     mel = (rng.normal(0, 1, (8, 1000, n_mels)) * 2.0 - 4.0).astype(np.float32)
@@ -1315,6 +1808,7 @@ def main() -> int:
     if counts["mrf_stage_unpacked"] != 2 * per_stage:
         raise RuntimeError(f"stage 1 (256 channels) did not take the unpacked kernel: {counts}")
 
+    log(f"-- phase 5 starts at {time.time() - t_start:.0f} s")
     # 5. timing at B=32 x 1000 frames
     b, frames = 32, 1000
     mel32 = torch.from_numpy((rng.normal(0, 1, (b, frames, n_mels)) * 2.0 - 4.0)
@@ -1359,6 +1853,7 @@ def main() -> int:
                             ("pallas_stage2", stage2_step, 12)):
         profile_step(label, lambda: fn(mel32, lens32, eps32), card, rows)
 
+    log(f"-- phase 6 starts at {time.time() - t_start:.0f} s")
     # 6. gate path: the gates of the prior's 16 WN layers under a speaker
     # conditioning, as a conditioned WN would run them; held to the module
     # graph's bf16 gate, which rounds after the add, tanh, sigmoid and product
@@ -1386,6 +1881,7 @@ def main() -> int:
         raise RuntimeError("gate path: fused_gate did not launch once per layer or disagrees "
                            "with the module graph's gate")
 
+    log(f"-- phase 7 starts at {time.time() - t_start:.0f} s")
     # 7. training-kernel A/B at full width: iitp_base's training shapes
     if hps.train.batch_size != ab_mrf_train.B:
         raise RuntimeError("the A/B batch is not the config's batch_size")
@@ -1413,6 +1909,7 @@ def main() -> int:
     if not (launches_ab["mrf_branch_bwd"] > 0 and launches_ab["mrf_stage_unpacked"] > 0):
         raise RuntimeError(f"the kernel leg did not launch: {launches_ab}")
 
+    log(f"-- phase 8 starts at {time.time() - t_start:.0f} s")
     # 8. the packed-MRF variants at the stage-3 serving shape
     K.reset_launch_counts()
     variants = exp_mrf_variants.main(stage=3, iters=3, device=dev)
@@ -1428,13 +1925,25 @@ def main() -> int:
     if variants["base"]["chk_central"] != variants["nomask"]["chk_central"]:
         raise RuntimeError(f"nomask differs from base beyond one radius of the ends: {variants}")
 
+    log(f"-- phase 9 starts at {time.time() - t_start:.0f} s")
     # 9. live serving: windows, streams, the multi-stream server, voice conversion
     live_serving(vocoder_hifi2, vocoder_f32, vocoder_wn0, mel_l1, card, rng)
 
+    log(f"-- phase 10 starts at {time.time() - t_start:.0f} s")
     # 10. the training step on the card
-    train_step_phase(card, dev, hps,
-                     load_config(os.path.join(ROOT, "configs", "iitp_base_ms.json")),
-                     rows=hps.train.batch_size)
+    bench = train_step_phase(card, dev, hps,
+                             load_config(os.path.join(ROOT, "configs", "iitp_base_ms.json")),
+                             rows=hps.train.batch_size)
+
+    log(f"-- phase 11 starts at {time.time() - t_start:.0f} s")
+    # 11. the training runtime: corpus, loader, loop, resume, eval, the CLI, NCCL
+    torch.cuda.empty_cache()
+    configs = {}
+    for cfg_name in ("iitp_base", "iitp_base_ms"):
+        with open(os.path.join(ROOT, "configs", f"{cfg_name}.json")) as f:
+            configs[cfg_name] = json.load(f)
+    training_runtime_phase(card, dev, configs["iitp_base"], configs["iitp_base_ms"],
+                           bench["legs"]["bf16"]["step_ms"])
 
     kernels = [
         {"name": "mrf_stage", "route": "cuda",
@@ -1474,6 +1983,7 @@ def main() -> int:
         rec.setdefault("earlier_ms", None)
         if set(rec) != keys or rec["launches"] <= 0:
             raise RuntimeError(f"incomplete kernel record: {rec}")
+    log(f"-- all phases done at {time.time() - t_start:.0f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

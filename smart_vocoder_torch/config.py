@@ -4,12 +4,16 @@ Counterpart of ``smart_vocoder_tpu/config.py`` (JAX-free there too, copied so
 this package never imports the JAX one). A config has three blocks --
 ``train``, ``data``, ``model`` -- plus optional runtime extras under ``tpu``
 that all have defaults; the port reads ``tpu.use_pallas`` (route the decoder's
-last two stages to the hand-written kernels) and ``tpu.hifi_tail``.
+last two stages to the hand-written kernels), ``tpu.hifi_tail`` and the
+training loop's extras (buckets, checkpoints kept, eval samples, profiling,
+the spectrogram cache, ``debug_nans``).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import os
 from typing import Any, Dict, Iterator
 
 
@@ -72,6 +76,7 @@ _TPU_DEFAULTS: Dict[str, Any] = {
     "debug_nans": False,
     "compilation_cache": True,
     "cache_specs": False,
+    "eval_samples": 8,  # validation utterances scored by eval/mel_l1
 }
 
 _REQUIRED_TRAIN = ["learning_rate", "betas", "eps", "batch_size", "segment_size",
@@ -114,3 +119,37 @@ def load_config(config_path: str) -> HParams:
     with open(config_path, "r", encoding="utf-8") as f:
         config = json.load(f)
     return validate(HParams(**config))
+
+
+def get_hparams_from_dir(model_dir: str) -> HParams:
+    """The config snapshot of a run directory (reference: utils.py:174-182)."""
+    hps = load_config(os.path.join(model_dir, "config.json"))
+    hps.model_dir = model_dir
+    return hps
+
+
+def get_hparams(args=None, init: bool = True) -> HParams:
+    """CLI entry: ``-c/--config`` and ``-m/--model`` -> HParams with
+    ``.model_dir`` = ``./logs/<model>``. ``init`` copies the config there as
+    ``config.json``; ``init=False`` reads that snapshot instead (reference:
+    utils.py:144-171). Unknown arguments are left to the caller."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("-c", "--config", type=str, default="./configs/iitp_base.json",
+                        help="JSON file for configuration")
+    parser.add_argument("-m", "--model", type=str, required=True, help="Model name")
+    ns, _ = parser.parse_known_args(args)
+
+    model_dir = os.path.join("./logs", ns.model)
+    os.makedirs(model_dir, exist_ok=True)
+    config_save_path = os.path.join(model_dir, "config.json")
+    if init:
+        with open(ns.config, "r", encoding="utf-8") as f:
+            data = f.read()
+        with open(config_save_path, "w", encoding="utf-8") as f:
+            f.write(data)
+    else:
+        with open(config_save_path, "r", encoding="utf-8") as f:
+            data = f.read()
+    hps = validate(HParams(**json.loads(data)))
+    hps.model_dir = model_dir
+    return hps

@@ -54,14 +54,17 @@ def feature_loss(fmap_r, fmap_g) -> torch.Tensor:
 
 
 def kl_loss(z_p: torch.Tensor, logs_q: torch.Tensor, m_p: torch.Tensor,
-            logs_p: torch.Tensor, z_mask: torch.Tensor) -> torch.Tensor:
+            logs_p: torch.Tensor, z_mask: torch.Tensor,
+            denominator: torch.Tensor | None = None) -> torch.Tensor:
     """Masked KL between the flow-mapped posterior and the mel prior
-    (ref: losses.py:46-61); any layout, the mask broadcast against the rest."""
+    (ref: losses.py:46-61); any layout, the mask broadcast against the rest.
+    The masked sum is divided by ``sum(z_mask)``, or by ``denominator`` where
+    a data-parallel rank must divide by its share of the global mask sum."""
     z_p, logs_q, m_p, logs_p = z_p.float(), logs_q.float(), m_p.float(), logs_p.float()
     z_mask = z_mask.float()
     kl = logs_p - logs_q - 0.5
     kl = kl + 0.5 * ((z_p - m_p) ** 2) * torch.exp(-2.0 * logs_p)
-    return torch.sum(kl * z_mask) / torch.sum(z_mask)
+    return torch.sum(kl * z_mask) / (torch.sum(z_mask) if denominator is None else denominator)
 
 
 def mel_l1_loss(y_mel: torch.Tensor, y_hat_mel: torch.Tensor) -> torch.Tensor:

@@ -25,6 +25,12 @@ inputs cast at each call, ``nn.set_compute_dtype``) over f32 master weights
 and f32 optimizer state, with every loss in f32 and no GradScaler: the JAX
 package's ``dtype=bf16`` modules over f32 params (training/loop.py:96-97).
 
+Under ``torch.distributed`` (``parallel/dist.py``) each phase's gradients
+are averaged over the ranks with one flat all-reduce before their norm and
+clamp, and each rank's KL term is divided by the global mask sum over the
+rank count, so the averaged gradient is the global batch's, as under JAX's
+``pjit``; the other losses are means over equal per-rank batches.
+
 Randomness is explicit: the posterior noise ``eps_q`` (B, T, inter), the
 slice starts ``ids_slice`` (B,) and the jigsaw permutation ``perm`` (4,) are
 passed in, or drawn from a ``torch.Generator`` (the JAX step splits one key,
@@ -43,6 +49,7 @@ from smart_vocoder_torch import losses as losses_lib
 from smart_vocoder_torch.models import build_discriminator, build_synthesizer
 from smart_vocoder_torch.nn import set_compute_dtype
 from smart_vocoder_torch.ops import MelConfig, mel_spectrogram, slice_segments, spec_to_mel
+from smart_vocoder_torch.parallel import dist as dist_lib
 from smart_vocoder_torch.training.optim import make_optimizer
 from smart_vocoder_torch.utils.device import resolve_device
 from smart_vocoder_torch.utils.init import init_discriminator, init_synthesizer
@@ -58,9 +65,16 @@ class Batch:
     wav_lengths: torch.Tensor   # (B,) int
     sid: Optional[torch.Tensor] = None  # (B,) speaker ids (ms configs)
 
-    def to(self, device) -> "Batch":
-        return Batch(*(None if v is None else v.to(device)
-                       for v in dataclasses.astuple(self)))
+    def _map(self, fn) -> "Batch":
+        # field by field: dataclasses.astuple would deep-copy every tensor first
+        return Batch(*(None if v is None else fn(v)
+                       for v in (getattr(self, f.name) for f in dataclasses.fields(self))))
+
+    def to(self, device, non_blocking: bool = False) -> "Batch":
+        return self._map(lambda v: v.to(device, non_blocking=non_blocking))
+
+    def pin_memory(self) -> "Batch":
+        return self._map(torch.Tensor.pin_memory)
 
 
 @dataclasses.dataclass
@@ -135,8 +149,10 @@ def make_train_step(hps, device=None):
     ids_slice=None, perm=None) -> (state, metrics)``. What is not passed is
     drawn from ``generator`` on its device. ``metrics`` holds detached
     tensors under the JAX step's names (step.py:220-238), with the three
-    ``image/*`` mels of the first row."""
+    ``image/*`` mels of the first row. Made inside a process group, the step
+    is data parallel over it."""
     device = resolve_device(device)
+    distributed = dist_lib.active()
     mel_cfg = MelConfig.from_hparams(hps)
     hop = hps.data.hop_length
     seg_frames = hps.train.segment_size // hop
@@ -150,6 +166,8 @@ def make_train_step(hps, device=None):
         """Gradients of ``loss`` for ``params`` -> their norm before the clamp
         -> optional clamp -> one optimizer step."""
         grads = torch.autograd.grad(loss, params)
+        if distributed:
+            grads = dist_lib.average_gradients(grads)
         norm = global_norm(grads)
         for p, g in zip(params, grads):
             p.grad = g if clip_val is None else g.clamp(-clip_val, clip_val)
@@ -190,7 +208,10 @@ def make_train_step(hps, device=None):
             y_hat_mel = mel_spectrogram(y_hat[..., 0].float(), mel_cfg)
             _, y_d_g, fmap_r, fmap_g = net_d(y.transpose(1, 2), y_hat.transpose(1, 2))
             loss_mel = losses_lib.mel_l1_loss(y_mel, y_hat_mel) * c_mel
-            loss_kl = losses_lib.kl_loss(z_p, logs_q, m_p, logs_p, z_mask) * c_kl
+            kl_den = None
+            if distributed:  # this rank's share of the global mask sum
+                kl_den = dist_lib.all_reduce_sum(z_mask.float().sum()) / dist_lib.world_size()
+            loss_kl = losses_lib.kl_loss(z_p, logs_q, m_p, logs_p, z_mask, kl_den) * c_kl
             fmap_r = [[f.detach() for f in maps] for maps in fmap_r]  # losses.py:11
             loss_fm = losses_lib.feature_loss(fmap_r, fmap_g)
             loss_gen, losses_gen = losses_lib.generator_loss(y_d_g)

@@ -11,10 +11,15 @@ reimplemented here without flax):
 
 The discriminator's spectral-norm state (the JAX ``spectral`` collection,
 ``weight_u`` leaves) maps the same way onto the port's ``weight_u`` buffers.
+
+The trainer's own checkpoints are reference-format payloads too
+(``save_torch_checkpoint``): the f32 master weights under the reference
+names, with the optimizer's real state beside them.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
@@ -65,12 +70,41 @@ def _ignorable(key: str) -> bool:
     return any(p == "cond_layer" or p == "cond" for p in key.split("."))
 
 
+def load_torch_checkpoint(pth_path: str) -> Dict[str, Any]:
+    """A ``.pth`` payload ``{model, iteration, optimizer, learning_rate, ...}``
+    (ref: utils.py:46-56), its tensors on the CPU."""
+    return torch.load(pth_path, map_location="cpu", weights_only=False)
+
+
 def load_reference_generator(pth_path: str, net: torch.nn.Module) -> int:
     """Load a reference ``G_<step>.pth`` payload ``{model, iteration, ...}``
     (ref: utils.py:46-56) into ``net`` strictly, dropping the conditioning
     keys an unconditioned model lacks. Returns the iteration."""
-    payload = torch.load(pth_path, map_location="cpu", weights_only=False)
+    payload = load_torch_checkpoint(pth_path)
     own = net.state_dict()
     sd = {k: v for k, v in payload["model"].items() if k in own or not _ignorable(k)}
     net.load_state_dict(sd, strict=True)
     return int(payload.get("iteration", 0))
+
+
+def load_reference_discriminator(pth_path: str, net: torch.nn.Module) -> int:
+    """Load a ``D_<step>.pth`` payload into ``net`` strictly (parameters and,
+    under spectral norm, the ``weight_u`` buffers). Returns the iteration."""
+    payload = load_torch_checkpoint(pth_path)
+    net.load_state_dict(payload["model"], strict=True)
+    return int(payload.get("iteration", 0))
+
+
+def save_torch_checkpoint(path: str, net: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                          iteration: int, learning_rate: float, epoch: int) -> None:
+    """Write ``{model, iteration, optimizer, learning_rate, epoch}``: the
+    reference payload (utils.py:46-56) plus the epoch. ``model`` is ``net``'s
+    state dict (the f32 master weights: ``weight_g`` / ``weight_v``, under
+    spectral norm ``weight_orig`` / ``weight_u``), ``optimizer`` the
+    optimizer's own state dict. Written to a temporary name beside ``path``
+    and moved into place, so a reader never sees half a file."""
+    tmp = f"{path}.tmp{os.getpid()}"
+    torch.save({"model": net.state_dict(), "iteration": int(iteration),
+                "optimizer": optimizer.state_dict(), "learning_rate": float(learning_rate),
+                "epoch": int(epoch)}, tmp)
+    os.replace(tmp, path)

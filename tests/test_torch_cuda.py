@@ -714,3 +714,85 @@ def test_train_step_on_the_card_matches_the_cpu():
     torch.cuda.synchronize()
     assert all(torch.isfinite(v).all() for v in m.values())
     assert not any(LAUNCHES.values()), dict(LAUNCHES)
+
+
+@pytest.mark.cuda
+def test_training_runtime_on_the_card(tmp_path):
+    """The loader's pinned, non-blocking copy to the card gives the CPU's
+    batches; the loop takes two steps on the card and a resumed run a third,
+    with finite losses and the pair restored."""
+    import copy
+    import json
+    import os
+
+    from smart_vocoder_torch.config import HParams, validate
+    from smart_vocoder_torch.data import AudioSpecDataset, BucketedLoader, BucketSampler
+    from smart_vocoder_torch.tools.make_corpus import write_corpus
+    from smart_vocoder_torch.training import loop as loop_lib
+    from test_torch_distributed import CFG
+
+    files = write_corpus(str(tmp_path / "corpus"), clips=8, min_frames=40, max_frames=68)
+    cfg = copy.deepcopy(CFG)
+    cfg["train"].update(eval_interval=2)
+    cfg["data"].update(training_files=files, validation_files=files)
+    cfg["model"]["use_spk_embed"] = False
+    cfg["tpu"] = {"bucket_boundaries": [32, 50, 70], "eval_samples": 2, "keep_ckpts": 2}
+    hps = validate(HParams(**cfg))
+    hps.model_dir = str(tmp_path / "run")
+
+    ds = AudioSpecDataset(files, hps.data)
+    sampler = BucketSampler(ds.lengths, 2, [32, 50, 70])
+    sampler.set_epoch(1)
+    on_card = list(BucketedLoader(ds, sampler, device="cuda"))
+    on_cpu = list(BucketedLoader(ds, sampler))
+    assert len(on_card) == len(on_cpu) > 0
+    for a, b in zip(on_card, on_cpu):
+        assert a.spec.is_cuda and torch.equal(a.spec.cpu(), b.spec)
+        assert torch.equal(a.wav.cpu(), b.wav) and torch.equal(a.spec_lengths.cpu(),
+                                                               b.spec_lengths)
+
+    loop_lib.run(hps, max_steps=2, device="cuda")
+    loop_lib.run(hps, max_steps=3, device="cuda")
+    with open(os.path.join(hps.model_dir, "train.log")) as f:
+        log = f.read()
+    assert "resumed from step 2" in log
+    losses = [json.loads(line.split("\t")[-1]) for line in log.splitlines()
+              if line.split("\t")[-1].startswith("[")]
+    assert [row[5] for row in losses] == [0, 1, 2]
+    assert all(np.isfinite(row[:5]).all() for row in losses)
+
+
+@pytest.mark.cuda
+def test_train_cli_under_torchrun_on_every_card(tmp_path):
+    """The ``train`` CLI under ``torchrun``, one NCCL rank per card: 3 steps,
+    then a second launch that every rank resumes from the chief's pair (the
+    ranks agree on the resumed step) for 2 more; finite losses at each step.
+    Needs two cards or more."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from test_torch_distributed import free_port, write_run_config
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip(f"needs two CUDA cards or more for NCCL across cards ({cards} here)")
+    write_run_config(tmp_path)
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), OMP_NUM_THREADS="1")
+    for steps in (3, 5):
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(cards),
+             "--master_addr", "127.0.0.1", "--master_port", str(free_port()),
+             "-m", "smart_vocoder_torch.train", "-c", "cfg.json", "-m", "nccl",
+             "--max-steps", str(steps)], cwd=tmp_path, env=env, capture_output=True,
+            text=True, timeout=600)
+        assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    log = (tmp_path / "logs" / "nccl" / "train.log").read_text()
+    assert f"torch.distributed nccl: rank 0 of {cards} on cuda:0" in log
+    assert "resumed from step 3" in log
+    losses = [json.loads(ln.split("\t")[-1]) for ln in log.splitlines()
+              if ln.split("\t")[-1].startswith("[")]
+    assert [row[5] for row in losses] == [0, 1, 2, 3, 4]
+    assert all(np.isfinite(row[:5]).all() for row in losses)

@@ -99,32 +99,20 @@ def jax_synth_params(jhps, seed=1, t=32):
 
 
 def test_port_imports_no_jax():
+    """Every module of the port, found by walking the package (a new module
+    is covered without being listed), imports with no JAX, flax or JAX
+    package module loaded."""
     code = (
-        "import sys, importlib\n"
-        "mods = ['smart_vocoder_torch', 'smart_vocoder_torch.config',\n"
-        "        'smart_vocoder_torch.ops', 'smart_vocoder_torch.nn',\n"
-        "        'smart_vocoder_torch.models', 'smart_vocoder_torch.kernels',\n"
-        "        'smart_vocoder_torch.kernels.mrf', 'smart_vocoder_torch.kernels.decoder',\n"
-        "        'smart_vocoder_torch.kernels.wn_stack', 'smart_vocoder_torch.kernels.encoder',\n"
-        "        'smart_vocoder_torch.kernels._build', 'smart_vocoder_torch.inference',\n"
-        "        'smart_vocoder_torch.utils.torch_compat', 'smart_vocoder_torch.utils.init',\n"
-        "        'smart_vocoder_torch.utils.device', 'smart_vocoder_torch.kernels.gate',\n"
-        "        'smart_vocoder_torch.kernels.mrf_train', 'smart_vocoder_torch.tools',\n"
-        "        'smart_vocoder_torch.tools.ab_mrf_train',\n"
-        "        'smart_vocoder_torch.tools.ab_stage_mma',\n"
-        "        'smart_vocoder_torch.tools.ab_pair_pass',\n"
-        "        'smart_vocoder_torch.tools.exp_mrf_variants',\n"
-        "        'smart_vocoder_torch.ops.noise', 'smart_vocoder_torch.serving',\n"
-        "        'smart_vocoder_torch.infer', 'smart_vocoder_torch.tools.bench_streaming',\n"
-        "        'smart_vocoder_torch.losses', 'smart_vocoder_torch.models.discriminator',\n"
-        "        'smart_vocoder_torch.training', 'smart_vocoder_torch.training.step',\n"
-        "        'smart_vocoder_torch.training.optim', 'smart_vocoder_torch.utils.flops',\n"
-        "        'smart_vocoder_torch.tools.bench_train']\n"
+        "import sys, importlib, pkgutil\n"
+        "import smart_vocoder_torch as pkg\n"
+        "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
+        "missing = {'smart_vocoder_torch.kernels.mrf', 'smart_vocoder_torch.training.loop',\n"
+        "           'smart_vocoder_torch.data.pipeline', 'smart_vocoder_torch.train'} - set(mods)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'smart_vocoder_tpu'))\n"
-        "print('BAD', bad)\n"
-        "sys.exit(1 if bad else 0)\n"
+        "             ('jax', 'jaxlib', 'flax', 'orbax', 'smart_vocoder_tpu'))\n"
+        "print('MODULES', len(mods), 'NOT WALKED', missing, 'BAD', bad)\n"
+        "sys.exit(1 if bad or missing else 0)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
