@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA H100: the serving paths, the
-training-kernel A/B, the packed-MRF variants, the GAN train step and the
-training runtime.
+training-kernel A/B, the packed-MRF variants, the GAN train step, the
+training runtime and the data axis (on every card where there are several).
 
     python3 chip_smoke.py
 
@@ -118,7 +118,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    algorithm search off, as the loop runs, beside phase 10's
    ``tools/bench_train.py``. A conditioned run of 5 steps on iitp_base_ms
    from ``path|sid`` lists. The corpus and runs live in a temporary
-   directory, removed at the end.
+   directory, removed at the end. Every config of the phase pins
+   ``tpu.data_parallel: 1``: one process on one card, on any machine.
+12. the data axis (``Vocoder(devices=...)``, iitp_base hifi 2 bf16, the
+   phase-4 weights). The checks run on cuDNN's heuristic plans (its timed
+   search keeps its choices per thread, and each device's shards run on a
+   thread of their own), the timing with the search on, as phase 5. (a) Two
+   shards on ``cuda:0``, B = 32 x 1000 with
+   ``seed=`` noise: one launch of each stage kernel a shard (counts reset just
+   before), each 16-row shard bit-equal to the one-device ``Vocoder``'s
+   decode of its rows (the noise split with them), the 32 rows within mel-L1
+   1e-3 of the one-device 32-row decode and 1e-2 of the f32 path; host ms a
+   ``mel_to_wav`` call of both, 5 interleaved rounds, with x real time and
+   TFLOP/s of ``utils.flops.synthesis_flops``. (b) Where there are two cards
+   or more: ``data_devices()`` at B = 32 x cards, each card's shard within
+   mel-L1 1e-3 of ``cuda:0``'s decode of its rows (largest sample difference
+   printed), the aggregate x real time beside one card's and the scaling;
+   then the ``train`` CLI without torchrun at
+   ``tests/test_torch_distributed.py:write_run_config``'s tiny config,
+   ``tpu.data_parallel: -1``, 3 steps: one NCCL rank per card, finite losses.
+   With one card (b) prints that it was not run.
 
 Every kernel's record carries its bound: the larger of its operations over
 the card's peak for their type (989 TFLOP/s, bf16 tensor cores: every conv
@@ -1045,7 +1064,9 @@ def training_runtime_phase(card: str, dev, base_cfg: dict, ms_cfg: dict,
             cfg = copy.deepcopy(base)
             cfg["train"].update(eval_interval=20, fp16_run=True, **train)
             cfg["data"].update(training_files=filelist, validation_files=filelist)
-            cfg.setdefault("tpu", {}).update(bf16_run=True, keep_ckpts=2)
+            # one process on one card, whatever the machine (the CLI starts one
+            # rank per card at the default -1; phase 12 runs that)
+            cfg.setdefault("tpu", {}).update(bf16_run=True, keep_ckpts=2, data_parallel=1)
             path = os.path.join(work, f"{name}.json")
             with open(path, "w") as f:
                 json.dump(cfg, f)
@@ -1239,6 +1260,188 @@ def training_runtime_phase(card: str, dev, base_cfg: dict, ms_cfg: dict,
     finally:
         torch.backends.cudnn.benchmark = benchmark
         shutil.rmtree(work, ignore_errors=True)
+
+
+# phase 12: the data axis -- a batch split over shards and cards, the CLI's ranks
+DP_ROWS, DP_FRAMES = 32, 1000   # rows a card, frames a row: phase 5's B = 32 x 1000
+
+
+def host_legs(legs: dict, rounds: int = ROUNDS) -> dict:
+    """Each leg's host ms per call (a call that ends on the host, as
+    ``mel_to_wav`` does): one warm-up call each, then ``rounds`` interleaved
+    rounds (every other one in reverse order); {leg: (median, min, max)}."""
+    import statistics
+
+    for fn in legs.values():
+        fn()
+    times = {name: [] for name in legs}
+    order = list(legs.items())
+    for r in range(rounds):
+        for name, fn in (order if r % 2 == 0 else order[::-1]):
+            t0 = time.perf_counter()
+            fn()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: (statistics.median(v), min(v), max(v)) for name, v in times.items()}
+
+
+def data_parallel_phase(card: str, hps, state, vocoder_one, vocoder_f32, mel_l1) -> None:
+    """Phase 12: ``Vocoder(devices=...)`` at iitp_base hifi 2 bf16 against
+    the one-device ``vocoder_one`` on ``cuda:0`` (same weights), and the
+    ``train`` CLI's ranks. Raises on any failure."""
+    import pathlib
+    import shutil
+    import tempfile
+
+    import torch
+
+    from smart_vocoder_torch.inference import Vocoder
+    from smart_vocoder_torch.kernels import mrf as K
+    from smart_vocoder_torch.parallel import data_devices, split_rows
+    from smart_vocoder_torch.tools import device_busy_ms
+    from smart_vocoder_torch.utils.flops import synthesis_flops
+
+    t_phase = time.perf_counter()
+    search = torch.backends.cudnn.benchmark  # the script's setting, phase 5's
+    rng = np.random.default_rng(SEED + 12)
+    n_mels = hps.data.n_mel_channels
+    opts = dict(dtype=torch.bfloat16, hifi=2, buckets=(DP_FRAMES,))
+
+    def batch(b):
+        return (rng.normal(0, 1, (b, DP_FRAMES, n_mels)) * 2.0 - 4.0).astype(np.float32)
+
+    def shard_launches(voc, mel, shards):
+        """``voc.mel_to_wav(mel, seed=SEED)`` with the counts reset just before:
+        one launch of each stage kernel a shard, no FMA body."""
+        K.reset_launch_counts()
+        wavs = voc.mel_to_wav(mel, seed=SEED)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in K.LAUNCHES.items() if v}
+        if got != {"mrf_stage": shards, "up_mrf_stage": shards}:
+            raise RuntimeError(f"{shards} shards launched {got}, expected one of each stage "
+                               "kernel a shard")
+        if not all(w.shape == (DP_FRAMES * HOP,) and np.isfinite(w).all() for w in wavs):
+            raise RuntimeError("a shard's audio is not finite or has the wrong length")
+        return wavs, got
+
+    def busy(fns, legs):
+        """{leg: card-busy ms of one profiled call, summed over the cards}."""
+        out = {k: device_busy_ms(fn, torch.device("cuda")) for k, fn in fns.items()}
+        for k, ms in out.items():
+            log(f"  {k}: the cards busy {ms:.1f} ms of one call "
+                f"({100 * ms / legs[k][0]:.1f}% of its host median, summed over the cards)")
+        return out
+
+    def rate(legs, rows):
+        """{leg: (x real time, TFLOP/s of the model count)} from host ms medians."""
+        audio_s, flops = rows * DP_FRAMES * HOP / SR, synthesis_flops(hps, rows, DP_FRAMES)
+        return {k: (audio_s / (ms / 1e3), flops / (ms / 1e3) / 1e12)
+                for k, (ms, _, _) in legs.items()}
+
+    # (a) two shards on one card, against the one-device decode of the same rows
+    walls = {}
+    t0 = time.perf_counter()
+    b = DP_ROWS
+    mel = batch(b)
+    two = Vocoder(hps, state, devices=["cuda:0", "cuda:0"], **opts)
+    walls["(a) init"] = time.perf_counter() - t0
+    try:
+        # the checks on cuDNN's heuristic plans: its timed search keeps its
+        # choices per thread, and the shards run on threads of their own
+        torch.backends.cudnn.benchmark = False
+        got, launches = shard_launches(two, mel, 2)
+        eps = two.batch_eps(SEED, b, DP_FRAMES).numpy()
+        for r in split_rows(b, 2):
+            want = vocoder_one.mel_to_wav(mel[r], eps=eps[r])
+            if not all(np.array_equal(g, w) for g, w in zip(got[r], want)):
+                raise RuntimeError(f"shard {r}: not bit-equal to the one-device decode of its "
+                                   "rows on the same card")
+        l1_whole = mel_l1(got, vocoder_one.mel_to_wav(mel, seed=SEED))
+        l1_f32 = mel_l1(got, vocoder_f32.mel_to_wav(mel, seed=SEED))
+        log(f"data parallel (a): 2 shards of {b // 2} rows on cuda:0, B = {b} x {DP_FRAMES}: "
+            f"each shard bit-equal to the one-device decode of its rows; launches {launches}; "
+            f"mel-L1 vs the one-device {b}-row decode {l1_whole:.3e} (bound 1e-3), vs the f32 "
+            f"path {l1_f32:.5f} (bound 1e-2)")
+        if not (l1_whole <= 1e-3 and l1_f32 <= 1e-2):
+            raise RuntimeError("data parallel (a): the shards' audio is off the one-device "
+                               "decode or the f32 path")
+        walls["(a) checks"] = time.perf_counter() - t0 - walls["(a) init"]
+        torch.backends.cudnn.benchmark = search
+        fns = {"one device": lambda: vocoder_one.mel_to_wav(mel, seed=SEED),
+               "two shards": lambda: two.mel_to_wav(mel, seed=SEED)}
+        legs = host_legs(fns)
+        rates = rate(legs, b)
+        for k, (ms, lo, hi) in legs.items():
+            log(f"  {k}: {ms:.1f} ms a mel_to_wav call ({lo:.1f}-{hi:.1f}, {ROUNDS} rounds), "
+                f"{rates[k][0]:.1f}x real time, {rates[k][1]:.1f} TFLOP/s  [{card}]")
+        busy(fns, legs)
+    finally:
+        torch.backends.cudnn.benchmark = search
+        two.close()
+    walls["(a) timing"] = time.perf_counter() - t0 - walls["(a) init"] - walls["(a) checks"]
+
+    # (b) every card
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"data parallel (b) not run: {cards} CUDA card here; splitting over cards and the "
+            "CLI's one rank per card need two or more (tests/test_torch_cuda.py has both)")
+    else:
+        t0 = time.perf_counter()
+        devices = data_devices()
+        b = DP_ROWS * cards
+        mel = batch(b)
+        many = Vocoder(hps, state, devices=devices, **opts)
+        try:
+            torch.backends.cudnn.benchmark = False  # the checks, as in (a)
+            got, launches = shard_launches(many, mel, cards)
+            eps = many.batch_eps(SEED, b, DP_FRAMES).numpy()
+            for d, r in zip(devices, split_rows(b, cards)):
+                want = vocoder_one.mel_to_wav(mel[r], eps=eps[r])
+                l1 = mel_l1(got[r], want)
+                diff = max(np.abs(g - w).max() for g, w in zip(got[r], want))
+                log(f"data parallel (b): {d} rows {r.start}-{r.stop - 1} vs cuda:0's decode of "
+                    f"them: mel-L1 {l1:.3e} (bound 1e-3), largest sample difference {diff:.3e}")
+                if not l1 <= 1e-3:
+                    raise RuntimeError(f"data parallel (b): {d}'s shard is off cuda:0's decode")
+            torch.backends.cudnn.benchmark = search
+            fns = {"one card": lambda: vocoder_one.mel_to_wav(mel[:DP_ROWS], seed=SEED),
+                   f"{cards} cards": lambda: many.mel_to_wav(mel, seed=SEED)}
+            legs = host_legs(fns)
+            one_x = rate({"one card": legs["one card"]}, DP_ROWS)["one card"]
+            all_x = rate({"all": legs[f"{cards} cards"]}, b)["all"]
+            for k, (ms, lo, hi) in legs.items():
+                log(f"  {k}: {ms:.1f} ms a call ({lo:.1f}-{hi:.1f}, {ROUNDS} rounds)  [{card}]")
+            log(f"  aggregate {all_x[0]:.1f}x real time ({all_x[1] / cards:.1f} TFLOP/s a card) "
+                f"against one card's {one_x[0]:.1f}x ({one_x[1]:.1f}): scaling "
+                f"{all_x[0] / one_x[0]:.2f} of {cards}; launches {launches}")
+            busy(fns, legs)
+        finally:
+            torch.backends.cudnn.benchmark = search
+            many.close()
+        walls["(b) serving"] = time.perf_counter() - t0
+
+        # the train CLI at a tiny config, data_parallel -1, no torchrun
+        t0 = time.perf_counter()
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+        from test_torch_distributed import write_run_config  # the tiny config of its CLI tests
+
+        work = tempfile.mkdtemp(prefix="svt_dp_")
+        try:
+            write_run_config(pathlib.Path(work))
+            model_dir, wall, _ = run_train_cli(work, "cfg.json", "dp", 3)
+            with open(os.path.join(model_dir, "train.log")) as f:
+                ranks = f"torch.distributed nccl: rank 0 of {cards} on cuda:0"
+                if ranks not in f.read():
+                    raise RuntimeError(f"the train CLI did not start one rank per card: "
+                                       f"'{ranks}' is not in its log")
+            traj = check_run_log(model_dir, range(3), "train CLI, one rank per card")
+            log(f"data parallel (b): the train CLI at tpu.data_parallel -1 started {cards} "
+                f"NCCL ranks, 3 steps in {wall:.1f} s, loss/g/total "
+                f"{[round(traj[s][1], 3) for s in range(3)]}")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        walls["(b) train CLI"] = time.perf_counter() - t0
+    log(f"  phase 12 wall {time.perf_counter() - t_phase:.1f} s: " +
+        ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
 
 
 def main() -> int:
@@ -1944,6 +2147,10 @@ def main() -> int:
             configs[cfg_name] = json.load(f)
     training_runtime_phase(card, dev, configs["iitp_base"], configs["iitp_base_ms"],
                            bench["legs"]["bf16"]["step_ms"])
+
+    log(f"-- phase 12 starts at {time.time() - t_start:.0f} s")
+    # 12. the data axis: two shards on one card; every card and the CLI's ranks
+    data_parallel_phase(card, hps, state, vocoder_hifi2, vocoder_f32, mel_l1)
 
     kernels = [
         {"name": "mrf_stage", "route": "cuda",

@@ -16,18 +16,28 @@ each window's interior. The prior noise of a window comes from
 ``ops.noise.positional_eps``, keyed by the absolute frame, so overlapping
 windows see the same latents and a stream equals the chunked decode bit for
 bit. ``serving.StreamServer`` batches the windows of many streams.
+
+Several cards (``smart_vocoder_tpu/inference.py:110-142``, ``Vocoder(mesh=...)``
+over the ``'data'`` axis): ``Vocoder(devices=[...])`` holds one replica of the
+weights a distinct device and splits a ``mel_to_wav`` batch into one block of
+rows a listed device (``parallel.split_rows``), each decoded on its device's
+worker thread. Row i's noise is keyed by (seed, i) over the whole batch, so
+the audio does not depend on the split.
 """
 
 from __future__ import annotations
 
 import bisect
+import contextlib
 import copy
+from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Iterable, Iterator, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from smart_vocoder_torch.config import HParams, load_config
+from smart_vocoder_torch.kernels._build import load_library
 from smart_vocoder_torch.kernels.decoder import DecoderConfig, decoder_apply, pack_decoder
 from smart_vocoder_torch.kernels.encoder import pack_prior_flow, prior_flow_apply
 from smart_vocoder_torch.models import build_synthesizer
@@ -39,6 +49,7 @@ from smart_vocoder_torch.ops import (
     spec_to_mel,
     spectrogram,
 )
+from smart_vocoder_torch.parallel.devices import check_devices, split_rows
 from smart_vocoder_torch.utils.device import resolve_device
 from smart_vocoder_torch.utils.torch_compat import load_reference_generator
 
@@ -64,7 +75,8 @@ class Vocoder:
                  buckets: Sequence[int] = (64, 128, 256, 512, 1024, 2048, 4096),
                  fold: bool = True, use_kernels: bool | None = None,
                  hifi: bool | int | None = None, device: str | torch.device | None = None,
-                 use_wn_kernels: bool | None = None):
+                 use_wn_kernels: bool | None = None,
+                 devices: Sequence[str | torch.device] | None = None):
         """``state_dict``: generator weights (folded or weight-normed), e.g.
         from ``state_dict_from_jax_params`` or a reference ``G_*.pth``.
         ``use_kernels`` defaults to the config's ``tpu.use_pallas``; ``hifi``
@@ -76,10 +88,24 @@ class Vocoder:
         unconditioned request's prior and flow through ``prior_flow_apply``
         in ``dtype`` -- also at hifi >= 2, where the module-graph prior would
         be f32, as the JAX path does (inference.py:211); it needs ``fold``
-        and ``hidden_channels % 64 == 0``."""
+        and ``hidden_channels % 64 == 0``.
+
+        ``devices`` (the JAX ``mesh``; not with ``device``): one shard of a
+        ``mel_to_wav`` batch per entry, and one replica of the weights per
+        distinct device, each made here with a worker thread of its own; a
+        device named twice decodes its shards one after the other on that
+        thread. The first device's replica is this
+        object's own (``net``, ``params``, ``dec_packed``, ``device``); the
+        windows (``_synth_window`` and its callers) decode there."""
+        if devices is not None:
+            if device is not None:
+                raise ValueError("pass device= or devices=, not both")
+            devices = check_devices(devices)
+            device = devices[0]
         set_precision_flags()
         self.hps = hps
         self.device = resolve_device(device)
+        self.devices = devices or [self.device]
         self.mel_cfg = MelConfig.from_hparams(hps)
         self.buckets = sorted(buckets)
         if use_kernels is None:
@@ -118,12 +144,37 @@ class Vocoder:
         self.wn_packed = (pack_prior_flow(self.params, **self.wn_sizes, dtype=dtype,
                                           device=self.device)
                           if self.use_wn_kernels else None)
+        self._workers = {}
+        if len(self.devices) > 1:
+            if (self.use_kernels or self.use_wn_kernels) and any(
+                    d.type == "cuda" for d in self.devices):
+                load_library()  # built here, not by the first of several workers
+            self._replicas = {self.device: self}
+            for d in self.devices:
+                if d not in self._replicas:
+                    self._replicas[d] = Vocoder(  # state_dict is folded already
+                        hps, state_dict, dtype=dtype, buckets=buckets, fold=fold,
+                        use_kernels=self.use_kernels, hifi=self.hifi,
+                        use_wn_kernels=self.use_wn_kernels, device=d)
+            # one thread a device, for good: cuDNN keeps its plans (and with
+            # cudnn.benchmark its timed choices) per thread, so a device's
+            # shards find them there at every call
+            self._workers = {d: ThreadPoolExecutor(1, thread_name_prefix=f"shard-{d}")
+                             for d in self._replicas}
+
+    def close(self) -> None:
+        """Stop the shards' worker threads (a one-device ``Vocoder`` has none)."""
+        for worker in self._workers.values():
+            worker.shutdown()
 
     @classmethod
     def from_torch_checkpoint(cls, config_path: str, pth_path: str, **kw) -> "Vocoder":
-        """Load a reference ``G_*.pth`` (notebook cell 3); ``device`` as in
-        ``__init__`` (the checkpoint itself is read on the CPU)."""
-        kw["device"] = resolve_device(kw.get("device"))  # before any file is read
+        """Load a reference ``G_*.pth`` (notebook cell 3); ``device`` and
+        ``devices`` as in ``__init__`` (the checkpoint itself is read on the CPU)."""
+        if kw.get("devices") is None:  # the device rule, before any file is read
+            kw["device"] = resolve_device(kw.get("device"))
+        else:
+            kw["devices"] = check_devices(kw["devices"])
         hps = load_config(config_path)
         net = build_synthesizer(hps)
         load_reference_generator(pth_path, net)
@@ -185,7 +236,10 @@ class Vocoder:
 
         The batch is padded to the next bucket; ``eps`` (B, T, inter_channels)
         pins the prior noise and is zero-padded like the mel, else it is drawn
-        by :meth:`batch_eps` at the padded length."""
+        by :meth:`batch_eps` at the padded length. Over several ``devices``
+        the rows, with their noise and ``sid``, are split by ``split_rows``
+        and the shards' audio joined in order; a shard's exception is raised
+        here."""
         mel = np.asarray(mel, np.float32)
         b, t, _ = mel.shape
         if lengths is None:
@@ -197,14 +251,35 @@ class Vocoder:
         else:
             eps = np.asarray(eps, np.float32)
             eps_t = torch.from_numpy(np.pad(eps, ((0, 0), (0, padded_t - eps.shape[1]), (0, 0))))
+        if len(self.devices) == 1:
+            o = self._decode_rows(mel, lengths, eps_t, noise_scale, sid)
+        else:
+            sid = None if sid is None else np.asarray(sid)
+            lens = np.asarray(lengths)
+            shards = [self._workers[d].submit(self._shard, d, mel[r], lens[r], eps_t[r],
+                                              noise_scale, None if sid is None else sid[r])
+                      for d, r in zip(self.devices, split_rows(b, len(self.devices)))
+                      if r.stop > r.start]
+            wait(shards)  # every shard ends before a failed one raises
+            o = np.concatenate([f.result() for f in shards])
+        hop = self.hps.data.hop_length
+        return [o[i, : int(lengths[i]) * hop, 0] for i in range(b)]
+
+    def _decode_rows(self, mel, lengths, eps, noise_scale, sid) -> np.ndarray:
+        """``_infer`` of host rows on this object's device, read back to the host."""
         dev = self.device
         o = self._infer(torch.from_numpy(mel).to(dev),
                         torch.as_tensor(np.asarray(lengths), dtype=torch.int64, device=dev),
-                        eps_t.to(dev), noise_scale,
+                        eps.to(dev), noise_scale,
                         None if sid is None else torch.as_tensor(np.asarray(sid), device=dev))
-        o = o.float().cpu().numpy()
-        hop = self.hps.data.hop_length
-        return [o[i, : int(lengths[i]) * hop, 0] for i in range(b)]
+        return o.float().cpu().numpy()
+
+    def _shard(self, device, mel, lengths, eps, noise_scale, sid) -> np.ndarray:
+        """One shard on its device's worker thread: that device's replica, with
+        the card current in the thread (and so its stream)."""
+        card = torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+        with card:
+            return self._replicas[device]._decode_rows(mel, lengths, eps, noise_scale, sid)
 
     def wav_to_wav(self, wav: np.ndarray, **kw) -> np.ndarray:
         """Copy-synthesis: waveform -> mel -> waveform (notebook cell 4)."""

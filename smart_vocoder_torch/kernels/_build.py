@@ -6,7 +6,9 @@ source, all started together, then links the objects into a shared library
 with a plain C interface under ``smart_vocoder_torch/_build/`` (git-ignored),
 named by a hash of the sources, headers and flags, so an edited source
 rebuilds and an unchanged one loads at once.
-A failed build or load raises; nothing is downloaded.
+A failed build or load raises; nothing is downloaded. The first load and the
+launch counts are safe under threads: a multi-card ``Vocoder`` launches from
+one worker thread a device.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -77,11 +80,19 @@ LAUNCHES: dict[str, int] = {"mrf_stage": 0, "up_mrf_stage": 0, "mrf_stage_unpack
                             "mrf_stage_fma": 0, "up_mrf_stage_fma": 0,
                             "mrf_stage_variant_fma": 0, "mrf_stage_unpacked_fma": 0,
                             "wn_stack_fma": 0, "mrf_branch_bwd_fma": 0}
+_COUNT_LOCK = threading.Lock()  # a += from two threads can lose one of them
+_LOAD_LOCK = threading.Lock()   # one build and one load, whatever thread asks first
+
+
+def count_launches(name: str, n: int = 1) -> None:
+    with _COUNT_LOCK:
+        LAUNCHES[name] += n
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def launch(name: str, fn, *args, launched: ctypes.c_int | None = None) -> None:
@@ -94,7 +105,7 @@ def launch(name: str, fn, *args, launched: ctypes.c_int | None = None) -> None:
     rc = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
-    LAUNCHES[name] += 1 if launched is None else launched.value
+    count_launches(name, 1 if launched is None else launched.value)
 
 
 def _nvcc() -> str:
@@ -123,7 +134,7 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc, tag = _nvcc(), f"{so.stem}.{os.getpid()}"
+    nvcc, tag = _nvcc(), f"{so.stem}.{os.getpid()}.{threading.get_ident()}"
     objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -149,9 +160,15 @@ def build() -> Path:
     return so
 
 
-@functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """The built kernel library with every entry point's argtypes declared."""
+    """The built kernel library with every entry point's argtypes declared
+    (built and loaded once: a thread that asks meanwhile waits)."""
+    with _LOAD_LOCK:
+        return _load()
+
+
+@functools.lru_cache(maxsize=None)
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

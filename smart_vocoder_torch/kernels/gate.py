@@ -26,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from smart_vocoder_torch.kernels._build import LAUNCHES
+from smart_vocoder_torch.kernels._build import count_launches
 
 BLOCK = 1024  # outputs per program
 
@@ -104,5 +104,5 @@ def fused_gate(x: torch.Tensor, g: Optional[torch.Tensor] = None) -> torch.Tenso
         _gate_kernel()[(triton.cdiv(out.numel(), BLOCK),)](
             x, g_arg, out, out.numel(), h, t, *strides, HAS_G=g is not None, BLOCK=BLOCK,
             num_warps=4)
-    LAUNCHES["fused_gate"] += 1
+    count_launches("fused_gate")
     return out

@@ -2,7 +2,11 @@
 place of the JAX package's ``('data', 'model')`` mesh (``parallel/mesh.py``;
 the ``model`` axis is not ported).
 
-A process started by ``torchrun`` (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+How many ranks: ``tpu.data_parallel``, as JAX's ``make_mesh(data=...)``
+reads it (``ranks_to_start``): ``-1`` is every visible card. Without
+torchrun the ``train`` CLI starts them itself (``start_ranks``); under
+torchrun the count is torchrun's and the config must agree with it.
+A process started either way (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``MASTER_ADDR``, ``MASTER_PORT`` in its environment) joins the group in
 ``init_from_env``: NCCL on the card ``cuda:<LOCAL_RANK>``, gloo on the CPU.
 Each rank loads ``train.batch_size`` rows of its own stripe of the sampler;
@@ -15,10 +19,12 @@ must resume one state: ``check_same`` stops them all where they do not.
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Sequence
+import socket
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from smart_vocoder_torch.utils.device import resolve_device
 
@@ -35,12 +41,65 @@ def world_size() -> int:
     return dist.get_world_size() if active() else 1
 
 
+def torchrun_world() -> Optional[int]:
+    """``WORLD_SIZE`` where torchrun's environment is set, else ``None``."""
+    if "WORLD_SIZE" in os.environ and "MASTER_ADDR" in os.environ:
+        return int(os.environ["WORLD_SIZE"])
+    return None
+
+
+def ranks_to_start(data_parallel: int, cards: int, world: Optional[int] = None,
+                   cpu: bool = False) -> int:
+    """How many ranks the ``train`` CLI starts for ``tpu.data_parallel``,
+    with ``cards`` visible cards, under torchrun's ``world`` ranks (or
+    ``None``), on the CPU or not. 1 means this process trains (and, under
+    torchrun, joins its group). ``-1`` is every visible card (one process on
+    the CPU, or where there is no card: the device rule then raises); ``N``
+    is ``N`` (gloo ranks on the CPU). Raises for more ranks than cards, and
+    under torchrun for a count other than ``-1`` or ``world``."""
+    if data_parallel == 0 or data_parallel < -1:
+        raise ValueError(f"tpu.data_parallel is {data_parallel}: -1 (every card) or N >= 1")
+    if world is not None:
+        if data_parallel not in (-1, world):
+            raise ValueError(f"tpu.data_parallel is {data_parallel} under torchrun's {world} "
+                             f"ranks: set it to -1 or {world}")
+        return 1
+    if data_parallel == -1:
+        return 1 if cpu else max(cards, 1)
+    if data_parallel > 1 and not cpu and data_parallel > cards:
+        raise ValueError(f"tpu.data_parallel is {data_parallel}, and {cards} CUDA cards are "
+                         "visible")
+    return data_parallel
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that nothing listens on now."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_entry(rank: int, world: int, port: int, fn: Callable, args: tuple) -> None:
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    fn(*args)
+
+
+def start_ranks(n: int, fn: Callable, args: tuple) -> None:
+    """Run ``fn(*args)`` in ``n`` spawned processes with torchrun's variables
+    set for one host (rank = local rank, a free port), as the reference's
+    ``mp.spawn`` did; returns when all have ended, and raises where one
+    failed (the others are then stopped)."""
+    mp.start_processes(_rank_entry, args=(n, free_port(), fn, args), nprocs=n, join=True,
+                       start_method="spawn")
+
+
 def init_from_env(device=None) -> torch.device:
     """The device this process trains on. Under torchrun's environment it
     also joins the process group: NCCL on ``cuda:<LOCAL_RANK>``, gloo when
     ``device`` is the CPU. Without that environment nothing is joined."""
     device = resolve_device(device)
-    if active() or not ("WORLD_SIZE" in os.environ and "MASTER_ADDR" in os.environ):
+    if active() or torchrun_world() is None:
         return device
     if device.type == "cuda":
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))

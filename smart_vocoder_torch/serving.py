@@ -73,6 +73,9 @@ class StreamServer:
 
     def __init__(self, vocoder: Vocoder, max_streams: int = 8, chunk: int = 384,
                  overlap: int = 96):
+        if len(vocoder.devices) > 1:
+            raise ValueError("StreamServer batches over the batch axis itself; run one server "
+                             "per card instead of a multi-device Vocoder")
         self.voc = vocoder
         self.max_streams = int(max_streams)
         self.chunk = int(chunk)

@@ -6,10 +6,14 @@
 Creates ``./logs/<model>/``, copies the config there as ``config.json``,
 resumes from the newest ``G_``/``D_`` checkpoint pair in it if there is one,
 and trains (``training.loop.run``). It runs on the CUDA card unless
-``--device cpu`` is given. Data parallel over cards: start it under
-``torchrun --nproc_per_node N -m smart_vocoder_torch.train ...``; each
-process joins the group from torchrun's environment (NCCL on its card, gloo
-with ``--device cpu``) and trains ``train.batch_size`` rows of every step.
+``--device cpu`` is given. Data parallel over cards, as JAX's loop builds
+its mesh from ``tpu.data_parallel``: ``-1`` (the default) starts one rank
+per visible card, ``N`` starts ``N`` (gloo ranks with ``--device cpu``,
+where ``-1`` is one process). Under ``torchrun --nproc_per_node N -m
+smart_vocoder_torch.train ...`` torchrun starts the ranks instead, and
+``tpu.data_parallel`` must be ``-1`` or ``N``. Each rank joins the group
+(NCCL on its card, gloo on the CPU) and trains ``train.batch_size`` rows of
+every step; a rank that fails makes the command fail.
 """
 
 from __future__ import annotations
@@ -17,9 +21,18 @@ from __future__ import annotations
 import argparse
 import sys
 
+import torch
+
 from smart_vocoder_torch.config import get_hparams
 from smart_vocoder_torch.parallel import dist as dist_lib
 from smart_vocoder_torch.training.loop import run
+
+
+def train_rank(hps, max_steps, device) -> None:
+    """One rank, or the only process: join the group if there is one, train."""
+    device = dist_lib.init_from_env(device)
+    run(hps, max_steps=max_steps, device=device)
+    dist_lib.shutdown()  # after every rank's last step (a failed rank exits without it)
 
 
 def main(argv=None) -> None:
@@ -29,9 +42,13 @@ def main(argv=None) -> None:
     extra.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
     ns, rest = extra.parse_known_args(sys.argv[1:] if argv is None else argv)
     hps = get_hparams(rest)
-    device = dist_lib.init_from_env(ns.device)
-    run(hps, max_steps=ns.max_steps, device=device)
-    dist_lib.shutdown()  # after every rank's last step (a failed rank exits without it)
+    cpu = ns.device is not None and torch.device(ns.device).type == "cpu"
+    n = dist_lib.ranks_to_start(int(hps.tpu.get("data_parallel", -1)),
+                                torch.cuda.device_count(), dist_lib.torchrun_world(), cpu)
+    if n == 1:
+        train_rank(hps, ns.max_steps, ns.device)
+    else:
+        dist_lib.start_ranks(n, train_rank, (hps, ns.max_steps, ns.device))
 
 
 if __name__ == "__main__":

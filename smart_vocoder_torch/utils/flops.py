@@ -1,6 +1,6 @@
-"""The train step's analytic model FLOPs (the part of
-``smart_vocoder_tpu/utils/flops.py`` that ``train_step_flops`` reaches, copied:
-the port may not import it).
+"""Analytic model FLOPs of synthesis and of the train step (the part of
+``smart_vocoder_tpu/utils/flops.py`` that ``synthesis_flops`` and
+``train_step_flops`` reach, copied: the port may not import it).
 
 Model FLOPs are the algorithmic conv and matmul work (2 x MACs) walked from
 the config (reference models.py), not what an implementation executes; the
@@ -79,6 +79,13 @@ def generator_flops(t_frames: float, hps) -> float:
         ch_in = ch
     fl += _conv(t, ch_in, 1, 7)  # conv_post
     return fl
+
+
+def synthesis_flops(hps, batch: int, frames: int) -> float:
+    """Full mel->wav inference: enc_p + reverse flow + decoder."""
+    t = float(batch * frames)
+    return (mel_encoder_flops(t, hps) + flow_flops(t, hps)
+            + generator_flops(t, hps))
 
 
 def discriminator_p_flops(t_samples: int, period: int, width_mult: float = 1.0,

@@ -796,3 +796,120 @@ def test_train_cli_under_torchrun_on_every_card(tmp_path):
               if ln.split("\t")[-1].startswith("[")]
     assert [row[5] for row in losses] == [0, 1, 2, 3, 4]
     assert all(np.isfinite(row[:5]).all() for row in losses)
+
+
+def _iitp_base_vocoders(**kw):
+    """iitp_base at full width, seeded weights, bf16 hifi 2: a one-device
+    ``Vocoder`` on ``cuda:0`` and one with ``kw`` (its ``devices``)."""
+    import os
+
+    from smart_vocoder_torch.config import load_config
+    from smart_vocoder_torch.inference import Vocoder
+    from smart_vocoder_torch.models import build_synthesizer
+    from smart_vocoder_torch.utils.init import init_synthesizer
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    hps = load_config(os.path.join(root, "configs", "iitp_base.json"))
+    state = init_synthesizer(build_synthesizer(hps, weight_norm=True), 1234).state_dict()
+    opts = dict(dtype=torch.bfloat16, hifi=2, buckets=(128,))
+    return hps, Vocoder(hps, state, device="cuda:0", **opts), Vocoder(hps, state, **opts, **kw)
+
+
+def _mel_batch(b, seed=0):
+    rng = np.random.default_rng(seed)
+    mel = (rng.normal(0, 1, (b, 100, 80)) * 2.0 - 4.0).astype(np.float32)
+    return mel, rng.integers(60, 101, b)
+
+
+def _mel_l1(hps, got, want):
+    from smart_vocoder_torch.ops import MelConfig, mel_spectrogram
+
+    cfg = MelConfig.from_hparams(hps)
+    a, b = (mel_spectrogram(torch.from_numpy(np.concatenate(w))[None], cfg) for w in (got, want))
+    return (a - b).abs().mean().item()
+
+
+@pytest.mark.cuda
+def test_vocoder_two_shards_on_one_card():
+    """``Vocoder(devices=["cuda:0", "cuda:0"])`` at iitp_base, bf16 hifi 2,
+    B = 5: each shard bit-equal to a one-device decode of its rows on the
+    same card (the noise drawn for the whole batch, split with the rows), and
+    each shard launched the two stage kernels."""
+    from smart_vocoder_torch.kernels import LAUNCHES, reset_launch_counts
+    from smart_vocoder_torch.parallel import split_rows
+
+    _, one, two = _iitp_base_vocoders(devices=["cuda:0", "cuda:0"])
+    try:
+        mel, lengths = _mel_batch(5)
+        eps = one.batch_eps(5, 5, 128).numpy()
+        reset_launch_counts()
+        got = two.mel_to_wav(mel, lengths, seed=5)
+        counts = dict(LAUNCHES)
+        assert counts["mrf_stage"] == counts["up_mrf_stage"] == 2, counts
+        for r in split_rows(5, 2):
+            for g, w in zip(got[r], one.mel_to_wav(mel[r], lengths[r], eps=eps[r])):
+                assert np.isfinite(g).all()
+                np.testing.assert_array_equal(g, w)
+    finally:
+        two.close()
+
+
+@pytest.mark.cuda
+def test_vocoder_over_every_card():
+    """``Vocoder(devices=data_devices())``: each card holds its own replica,
+    and each card's shard is within mel-L1 1e-3 of ``cuda:0``'s decode of the
+    same rows (another card may pick other convolution algorithms). Needs two
+    cards or more."""
+    from smart_vocoder_torch.parallel import data_devices, split_rows
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip(f"needs two CUDA cards or more ({cards} here)")
+    hps, one, many = _iitp_base_vocoders(devices=data_devices())
+    try:
+        for d, rep in many._replicas.items():
+            assert all(p.device == d for p in rep.net.parameters())
+            assert all(t.device == d for stage in rep.dec_packed if stage.kernel is not None
+                       for t in stage.kernel)
+        b = 2 * cards + 1
+        mel, lengths = _mel_batch(b, seed=1)
+        eps = one.batch_eps(3, b, 128).numpy()
+        got = many.mel_to_wav(mel, lengths, seed=3)
+        for r in split_rows(b, cards):
+            want = one.mel_to_wav(mel[r], lengths[r], eps=eps[r])
+            assert _mel_l1(hps, got[r], want) <= 1e-3
+    finally:
+        many.close()
+
+
+@pytest.mark.cuda
+def test_train_cli_starts_a_rank_per_card(tmp_path):
+    """The ``train`` CLI without torchrun at ``tpu.data_parallel: -1``:
+    one NCCL rank per card, 3 steps with finite losses. Needs two cards or
+    more."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from test_torch_distributed import write_run_config
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip(f"needs two CUDA cards or more ({cards} here)")
+    write_run_config(tmp_path)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env.update(PYTHONPATH=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+               OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "smart_vocoder_torch.train", "-c", "cfg.json", "-m", "dp",
+         "--max-steps", "3"], cwd=tmp_path, env=env, capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    log = (tmp_path / "logs" / "dp" / "train.log").read_text()
+    assert f"torch.distributed nccl: rank 0 of {cards} on cuda:0" in log
+    losses = [json.loads(ln.split("\t")[-1]) for ln in log.splitlines()
+              if ln.split("\t")[-1].startswith("[")]
+    assert [row[5] for row in losses] == [0, 1, 2]
+    assert all(np.isfinite(row[:5]).all() for row in losses)

@@ -22,18 +22,20 @@ the other starts fresh) both stop before a step, naming the disagreement;
 on one shared directory both resume the pair and train on. Last, the
 ``train`` CLI under ``torchrun`` with two gloo ranks: both join the group
 from torchrun's environment, the chief alone writes the log and the pairs,
-and both leave the group at the end.
+and both leave the group at the end. Without torchrun the CLI starts
+``tpu.data_parallel`` ranks itself (the rule: ``ranks_to_start``): two gloo
+ranks train as under torchrun, and a rank that fails fails the command.
 """
 
 import copy
 import json
 import os
-import socket
 import subprocess
 import sys
 from unittest import mock
 
 import numpy as np
+import pytest
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
@@ -135,10 +137,7 @@ def _worker(rank, world, port, out_dir):
         dist.destroy_process_group()
 
 
-def free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+free_port = dist_lib.free_port
 
 
 def grad_error(got, want):
@@ -273,3 +272,66 @@ def test_train_cli_under_torchrun(tmp_path):
     assert "eval step 0" in log and "eval step 2" in log
     assert sorted(p.name for p in model_dir.glob("*.pth")) == ["D_2.pth", "D_3.pth",
                                                                   "G_2.pth", "G_3.pth"]
+
+
+@pytest.mark.parametrize("data_parallel, cards, world, cpu, want", [
+    (-1, 4, None, False, 4),     # every visible card
+    (-1, 0, None, False, 1),     # no card: one process, and the device rule raises
+    (-1, 4, None, True, 1),      # --device cpu: one process
+    (2, 4, None, False, 2),
+    (1, 4, None, False, 1),
+    (3, 0, None, True, 3),       # gloo ranks on the CPU
+    (5, 4, None, False, "5, and 4 CUDA cards"),
+    (0, 4, None, False, "-1 .every card. or N"),
+    (-1, 4, 4, False, 1),        # under torchrun: its ranks, each trains in-process
+    (4, 4, 4, False, 1),
+    (2, 4, 4, False, "under torchrun's 4 ranks"),
+])
+def test_ranks_to_start(data_parallel, cards, world, cpu, want):
+    if isinstance(want, str):
+        with pytest.raises(ValueError, match=want):
+            dist_lib.ranks_to_start(data_parallel, cards, world, cpu)
+    else:
+        assert dist_lib.ranks_to_start(data_parallel, cards, world, cpu) == want
+
+
+def test_train_cli_starts_its_ranks(tmp_path):
+    """``tpu.data_parallel: 2`` with ``--device cpu`` and no torchrun: the
+    CLI starts two gloo ranks itself, each trains, the chief logs and saves."""
+    write_run_config(tmp_path)
+    cfg = json.loads((tmp_path / "cfg.json").read_text())
+    cfg["tpu"]["data_parallel"] = 2
+    (tmp_path / "cfg.json").write_text(json.dumps(cfg))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env.update(PYTHONPATH=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+               OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "smart_vocoder_torch.train", "-c", "cfg.json", "-m", "dp2",
+         "--max-steps", "3", "--device", "cpu"], cwd=tmp_path, env=env, capture_output=True,
+        text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    model_dir = tmp_path / "logs" / "dp2"
+    log = (model_dir / "train.log").read_text()
+    assert "torch.distributed gloo: rank 0 of 2 on cpu" in log
+    steps = [json.loads(ln.split("\t")[-1])[5] for ln in log.splitlines()
+             if ln.split("\t")[-1].startswith("[")]
+    assert steps == [0, 1, 2]
+    assert sorted(p.name for p in model_dir.glob("*.pth")) == ["D_2.pth", "D_3.pth",
+                                                                  "G_2.pth", "G_3.pth"]
+
+
+def test_a_failing_rank_fails_the_cli(tmp_path, monkeypatch):
+    """Both spawned ranks stop at a config the loop refuses: the CLI raises
+    (a non-zero exit from the command line)."""
+    from smart_vocoder_torch import train
+
+    write_run_config(tmp_path)
+    cfg = json.loads((tmp_path / "cfg.json").read_text())
+    cfg["tpu"].update(data_parallel=2, model_parallel=2)
+    (tmp_path / "cfg.json").write_text(json.dumps(cfg))
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(mp.ProcessRaisedException, match="model_parallel"):
+        train.main(["-c", "cfg.json", "-m", "bad", "--device", "cpu"])

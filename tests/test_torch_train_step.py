@@ -362,3 +362,15 @@ def test_flop_model_copy_matches_jax():
     assert train_step_flops(torch_load(path), 16, 1000) == jax_train_step_flops(
         jax_load(path), 16, 1000)
     assert round(train_step_flops(torch_load(path), 16, 1000) / 1e12, 2) == 5.58
+
+
+def test_synthesis_flop_count_matches_jax():
+    from smart_vocoder_torch.config import load_config as torch_load
+    from smart_vocoder_torch.utils.flops import synthesis_flops
+    from smart_vocoder_tpu.config import load_config as jax_load
+    from smart_vocoder_tpu.utils.flops import synthesis_flops as jax_synthesis_flops
+
+    path = __file__.rsplit("/tests/", 1)[0] + "/configs/iitp_base.json"
+    assert synthesis_flops(torch_load(path), 32, 1000) == jax_synthesis_flops(
+        jax_load(path), 32, 1000)
+    assert round(synthesis_flops(torch_load(path), 1, 1000) / 1e9, 1) == 657.5  # a 1000-frame row
