@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA H100: the serving paths, the
 training-kernel A/B, the packed-MRF variants, the GAN train step, the
-training runtime and the data axis (on every card where there are several).
+training runtime, the data axis and the model axis (on every card where
+there are several).
 
     python3 chip_smoke.py
 
@@ -138,6 +139,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``tests/test_torch_distributed.py:write_run_config``'s tiny config,
    ``tpu.data_parallel: -1``, 3 steps: one NCCL rank per card, finite losses.
    With one card (b) prints that it was not run.
+13. the model axis (``tpu.model_parallel``; ``tools/bench_model_axis.py``):
+   iitp_base bf16 at full width from the seeded init (seed 1234), phase 10's
+   batch of 16 x 1000 frames with the draws passed in. JAX's shard rule at
+   M = 2 must take 343 of G's 639 tensors and 48 of D's 111; each leg's
+   optimizer state must be the MB its shapes give at its M (~717 at M = 1,
+   ~362 at M = 2). The checks run with cuDNN's search off, the timing with it
+   on. (a) one process on ``cuda:0``, twice from the same weights: the
+   card's run-to-run drift of the five losses (steps 1-3 and the last timed
+   step) and of the parameters. With two cards or more, through
+   ``parallel.dist.start_ranks`` (one NCCL rank a card, results through
+   files): (b) D = 1 x M = 2, 8 rows a card: step 1's five losses within
+   rel 1e-4 of (a)'s, or of (a)'s own drift if larger. With four: (c) D = 2 x
+   M = 2 against D = 4 x M = 1 on the same 4 rows a card, 3 steps with
+   ``cudnn.deterministic`` and ``torch.use_deterministic_algorithms`` on
+   (warning only): the parameters bit-equal, or, where D = 4 x M = 1 does
+   not repeat itself either, the largest differences printed with that
+   cause and the ops that warned; (d) D = 4 x M = 1 with phase 10's 16 rows on each card: the
+   step across cards, its x real time against (a)'s and the scaling. Every
+   leg prints its optimizer MB a card, peak memory, step ms (median of 5
+   interleaved rounds with its range), busy share (the kernels apart from
+   NCCL's, which run on their own stream and wait inside the kernel; NCCL's
+   ms beside it) and the card. With one card (b)-(d) print why they did not run.
 
 Every kernel's record carries its bound: the larger of its operations over
 the card's peak for their type (989 TFLOP/s, bf16 tensor cores: every conv
@@ -925,10 +948,10 @@ class LoopProbe:
                 return out
 
         class Manager(loop_lib.CheckpointManager):
-            def save(self, step, state, epoch, learning_rate):
+            def save(self, step, state, epoch, learning_rate, **kwargs):
                 probe.sync()
                 t0 = time.perf_counter()
-                super().save(step, state, epoch, learning_rate)
+                super().save(step, state, epoch, learning_rate, **kwargs)
                 probe.saves.append(time.perf_counter() - t0)
                 probe.save_bytes.append(sum(os.path.getsize(self.path(t, step)) for t in "GD"))
 
@@ -1442,6 +1465,180 @@ def data_parallel_phase(card: str, hps, state, vocoder_one, vocoder_f32, mel_l1)
         walls["(b) train CLI"] = time.perf_counter() - t0
     log(f"  phase 12 wall {time.perf_counter() - t_phase:.1f} s: " +
         ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
+
+
+# phase 13: the model axis -- the optimizer state split over a model group of cards
+MA_ROWS = 16   # phase 10's batch: rows x TRAIN_FRAMES frames, segment 8192
+MA_RULE = {"G": (343, 639), "D": (48, 111)}  # JAX's rule at iitp_base, M = 2: (sharded, all)
+MA_LOSS_REL = 1e-4  # step 1 of a split batch against one process on the whole, at least
+
+
+def rel_diff(a, b) -> float:
+    """The largest relative difference of two lists of losses."""
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def model_axis_phase(card: str, hps) -> None:
+    """Phase 13: the train step over the mesh's model axis
+    (``tools/bench_model_axis.py``), iitp_base bf16 at full width from the
+    seeded init, phase 10's batch with the draws passed in. Raises on any
+    failure."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from smart_vocoder_torch.models import build_discriminator, build_synthesizer
+    from smart_vocoder_torch.parallel import dist as dist_lib
+    from smart_vocoder_torch.parallel import leaf_sharded
+    from smart_vocoder_torch.tools import bench_model_axis as bma
+    from smart_vocoder_torch.tools.bench_train import LOSSES, leg_hps
+
+    t_phase = time.perf_counter()
+    hps = leg_hps(hps, "bf16")
+    counts, elems = {}, {}
+    for tag, net in (("G", build_synthesizer(hps)), ("D", build_discriminator(hps))):
+        shapes = [p.shape for p in net.parameters()]
+        counts[tag] = (sum(leaf_sharded(s, 2) for s in shapes), len(shapes))
+        elems[tag] = [(int(np.prod(s)), leaf_sharded(s, 2)) for s in shapes]
+    # both f32 AdamW moments of every tensor, of a 1/M block where the rule shards it
+    moments_mb = {m: 8 * sum(n // m if sharded else n for e in elems.values() for n, sharded in e)
+                  / 1e6 for m in (1, 2)}
+    log(f"model axis: JAX's shard rule at iitp_base, M = 2, takes {counts['G'][0]} of G's "
+        f"{counts['G'][1]} tensors and {counts['D'][0]} of D's {counts['D'][1]}; both AdamW "
+        f"moments come to {moments_mb[1]:.1f} MB a card at M = 1 and {moments_mb[2]:.1f} at "
+        "M = 2 (from the shapes)")
+    if counts != MA_RULE:
+        raise RuntimeError(f"model axis: the rule takes {counts}, expected {MA_RULE}")
+
+    def report(label, ranks, m):
+        """Print a leg's readings (rank 0's, with the spread over the ranks)
+        and hold its optimizer state to the shapes' count."""
+        legs = [r[label] for r in ranks]
+        leg = legs[0]
+        mb = [x["optimizer_mb"] for x in legs]
+        if not all(abs(x - moments_mb[m]) <= 1e-3 * moments_mb[m] for x in mb):
+            raise RuntimeError(f"model axis {label}: optimizer state {mb} MB, expected "
+                               f"{moments_mb[m]:.1f} at M = {m}")
+        if not all(np.isfinite(x["check_losses"]).all() for x in legs):
+            raise RuntimeError(f"model axis {label}: non-finite losses")
+        text = (f"  {label}: mesh {leg['mesh'].split(' (')[0]}, {leg['rows']} rows a card: "
+                f"optimizer state {max(mb):.1f} MB a card")
+        if "step_ms" in leg:
+            if not all(np.isfinite(x["last_losses"]).all() for x in legs):
+                raise RuntimeError(f"model axis {label}: non-finite losses while timed")
+            busy = [x["busy_share"] for x in legs]
+            text += (f"; peak {max(x['peak_mem_gib'] for x in legs):.2f} GiB; step "
+                     f"{span((leg['step_ms'], leg['step_ms_min'], leg['step_ms_max']))} ms "
+                     f"({leg['rounds']} rounds of {leg['iters']}, rank 0; the ranks' medians "
+                     f"{min(x['step_ms'] for x in legs):.2f}-{max(x['step_ms'] for x in legs):.2f}"
+                     f"); busy {100 * min(busy):.1f}-{100 * max(busy):.1f}% over the cards, "
+                     f"NCCL's kernels apart ({max(x['nccl_ms'] for x in legs):.1f} ms a step "
+                     "at most)")
+        log(text + f"  [{card}]")
+        return leg
+
+    def spawn(n, legs, options=None):
+        dist_lib.start_ranks(n, bma.rank_main, (work, hps, legs, "cuda", options))
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f)["legs"])
+            os.remove(os.path.join(work, f"rank{r}.json"))
+        return ranks
+
+    walls = {}
+    work = tempfile.mkdtemp(prefix="svt_ma_")
+    try:
+        bma.write_inputs(work, hps, MA_ROWS, TRAIN_FRAMES)
+        # (a) one process on cuda:0, twice: the card's run-to-run drift
+        t0 = time.perf_counter()
+        a = bma.run_legs(hps, work, [("one", 1, MA_ROWS, True), ("one again", 1, MA_ROWS, True)],
+                         torch.device("cuda:0"))
+        log(f"model axis (a): one process on cuda:0, B = {MA_ROWS} x {TRAIN_FRAMES}, twice "
+            "from the same weights and draws (checks: cuDNN's search off; timing: on)")
+        one = report("one", [a], 1)
+        report("one again", [a], 1)
+        drift = [rel_diff(x, y) for x, y in zip(a["one again"]["check_losses"],
+                                                 one["check_losses"])]
+        later = rel_diff(a["one again"]["last_losses"], one["last_losses"])
+        log(f"  run-to-run drift of the five losses: steps 1-3 "
+            f"{', '.join(f'{d:.2e}' for d in drift)}; step {one['steps']} {later:.2e}; "
+            f"parameters after step 3 " + ("bit-equal" if a["one again"]["against"]["one"][0]
+                                            else f"differ by up to "
+                                            f"{a['one again']['against']['one'][1]:.3e}"))
+        walls["(a)"] = time.perf_counter() - t0
+
+        cards = torch.cuda.device_count()
+        if cards < 2:
+            log(f"model axis (b)-(d) not run: {cards} CUDA card here; NCCL puts one rank on "
+                "a card, and a model group needs two (four for (c)-(d))")
+            return
+        # (b) D = 1 x M = 2 on cards 0-1, 8 rows a card, against (a)
+        t0 = time.perf_counter()
+        b = spawn(2, [("d1 x m2", 2, MA_ROWS // 2, True)])
+        log(f"model axis (b): D = 1 x M = 2 on cuda:0-1, the same {MA_ROWS} rows split")
+        two = report("d1 x m2", b, 2)
+        tol = max(MA_LOSS_REL, drift[0])
+        for k, x, y in zip(LOSSES, two["check_losses"][0], one["check_losses"][0]):
+            rel = abs(x - y) / abs(y)
+            log(f"  step 1 {k}: {x:.6f} against (a)'s {y:.6f}, rel {rel:.2e} (<= {tol:.1e}) "
+                f"-> {'ok' if rel <= tol else 'FAIL'}")
+            if rel > tol:
+                raise RuntimeError(f"model axis (b): step 1's {k} off one process's by {rel:.2e}")
+        walls["(b)"] = time.perf_counter() - t0
+        if cards < 4:
+            log(f"model axis (c)-(d) not run: {cards} CUDA cards here, they need four")
+            return
+        # (c) D = 2 x M = 2 against D = 4 x M = 1 on the same 4 rows a card; (d) D = 4 at
+        # 16 rows a card (each card trains phase 10's whole batch)
+        t0 = time.perf_counter()
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"  # cuBLAS repeats itself, in the ranks
+        try:
+            c = spawn(4, [("d4 x m1", 1, MA_ROWS // 4, True),
+                          ("d2 x m2", 2, MA_ROWS // 4, True),
+                          ("d4 x m1 again", 1, MA_ROWS // 4, False),
+                          ("d4 x m1, 16 rows a card", 1, MA_ROWS, True)], {"deterministic": True})
+        finally:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        log("model axis (c): D = 2 x M = 2 against D = 4 x M = 1 on cuda:0-3, the same "
+            f"{MA_ROWS // 4} rows a card, 3 steps (the checks with cudnn.deterministic and "
+            "torch.use_deterministic_algorithms on)")
+        ref = report("d4 x m1", c, 1)
+        report("d2 x m2", c, 2)
+        for s, (x, y) in enumerate(zip(c[0]["d2 x m2"]["check_losses"], ref["check_losses"])):
+            log(f"  step {s + 1}: the five losses {'equal' if x == y else 'differ'} "
+                f"(rel {rel_diff(x, y):.2e})")
+        def apart(leg, other):
+            """Whether ``leg`` equals ``other`` on every card, and their largest difference."""
+            got = [r[leg]["against"][other] for r in c]
+            return all(eq for eq, _ in got), max(diff for _, diff in got)
+
+        axis, again = apart("d2 x m2", "d4 x m1"), apart("d4 x m1 again", "d4 x m1")
+        if axis[0]:
+            log("  the parameters after 3 steps are bit-equal on every card")
+        elif again[0]:
+            raise RuntimeError(f"model axis (c): D = 2 x M = 2 differs from D = 4 x M = 1 by up "
+                               f"to {axis[1]:.3e}, and D = 4 x M = 1 repeats itself bit for "
+                               "bit: the model axis changed the result")
+        else:
+            warned = sorted({w for r in c for leg in r.values() for w in leg["nondeterministic"]})
+            log(f"  the parameters after 3 steps differ by up to {axis[1]:.3e} (against the "
+                f"repeat {apart('d2 x m2', 'd4 x m1 again')[1]:.3e}); cause: the step does not "
+                f"repeat itself on the card, D = 4 x M = 1 against itself differs by up to "
+                f"{again[1]:.3e}; ops without a deterministic implementation: {warned}")
+        walls["(c)"] = time.perf_counter() - t0
+        log("model axis (d): a full-width step at D = 4 x M = 1, each card training phase 10's "
+            f"{MA_ROWS} rows ({4 * MA_ROWS} rows a step)")
+        d4 = report("d4 x m1, 16 rows a card", c, 1)
+        audio_s = 4 * MA_ROWS * TRAIN_FRAMES * HOP / SR
+        log(f"  {audio_s / (d4['step_ms'] / 1e3):.1f}x real time over four cards against one "
+            f"card's {audio_s / 4 / (one['step_ms'] / 1e3):.1f}x in (a): scaling "
+            f"{4 * one['step_ms'] / d4['step_ms']:.2f} of 4  [{card}]")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        log(f"  phase 13 wall {time.perf_counter() - t_phase:.1f} s: " +
+            ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
 
 
 def main() -> int:
@@ -2151,6 +2348,11 @@ def main() -> int:
     log(f"-- phase 12 starts at {time.time() - t_start:.0f} s")
     # 12. the data axis: two shards on one card; every card and the CLI's ranks
     data_parallel_phase(card, hps, state, vocoder_hifi2, vocoder_f32, mel_l1)
+
+    log(f"-- phase 13 starts at {time.time() - t_start:.0f} s")
+    # 13. the model axis: the optimizer state split over a model group of cards
+    torch.cuda.empty_cache()
+    model_axis_phase(card, hps)
 
     kernels = [
         {"name": "mrf_stage", "route": "cuda",

@@ -1,8 +1,10 @@
 """The devices of the data axis and the rows each one decodes.
 
 Counterpart of ``smart_vocoder_tpu/parallel/mesh.py:make_mesh`` and
-``batch_sharding`` for the ``'data'`` axis only (the ``'model'`` axis is not
-ported): ``data_devices`` picks the cards a ``Vocoder(devices=...)`` splits a
+``batch_sharding`` for the ``'data'`` axis only (JAX's ``Vocoder(mesh=...)``
+passes the parameters replicated, so a ``'model'`` axis there would decode
+the same rows on each of its devices; training's is ``parallel/mesh.py``):
+``data_devices`` picks the cards a ``Vocoder(devices=...)`` splits a
 batch over, and ``split_rows`` cuts the batch into one block of rows each.
 """
 

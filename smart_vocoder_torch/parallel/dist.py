@@ -1,19 +1,22 @@
 """Data parallelism through ``torch.distributed``: one process per card, in
-place of the JAX package's ``('data', 'model')`` mesh (``parallel/mesh.py``;
-the ``model`` axis is not ported).
+place of the JAX package's ``('data', 'model')`` mesh (``parallel/mesh.py``
+lays the ranks out on that grid and splits the optimizer state over its
+``model`` axis; ``training/sharded.py``).
 
-How many ranks: ``tpu.data_parallel``, as JAX's ``make_mesh(data=...)``
-reads it (``ranks_to_start``): ``-1`` is every visible card. Without
-torchrun the ``train`` CLI starts them itself (``start_ranks``); under
-torchrun the count is torchrun's and the config must agree with it.
+How many ranks: ``tpu.data_parallel × tpu.model_parallel``, as JAX's
+``make_mesh(data=..., model=...)`` reads them (``ranks_to_start``):
+``data_parallel: -1`` is every visible card over ``model_parallel``.
+Without torchrun the ``train`` CLI starts them itself (``start_ranks``);
+under torchrun the count is torchrun's and the config must agree with it.
 A process started either way (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``MASTER_ADDR``, ``MASTER_PORT`` in its environment) joins the group in
 ``init_from_env``: NCCL on the card ``cuda:<LOCAL_RANK>``, gloo on the CPU.
-Each rank loads ``train.batch_size`` rows of its own stripe of the sampler;
-the train step averages the gradients of each phase with one flat all-reduce
-before their norm and clamp, so every rank applies the global batch's
-gradient, as JAX's ``pjit`` step does (``training/step.py``). The ranks
-must resume one state: ``check_same`` stops them all where they do not.
+Each rank loads ``train.batch_size / model_parallel`` rows of its own stripe
+of the sampler; the train step averages the gradients of each phase with
+one flat all-reduce over every rank before their norm and clamp, so every
+rank applies the global batch's gradient, as JAX's ``pjit`` step does
+(``training/step.py``). The ranks must resume one state: ``check_same``
+stops them all where they do not.
 """
 
 from __future__ import annotations
@@ -49,27 +52,45 @@ def torchrun_world() -> Optional[int]:
 
 
 def ranks_to_start(data_parallel: int, cards: int, world: Optional[int] = None,
-                   cpu: bool = False) -> int:
-    """How many ranks the ``train`` CLI starts for ``tpu.data_parallel``,
-    with ``cards`` visible cards, under torchrun's ``world`` ranks (or
-    ``None``), on the CPU or not. 1 means this process trains (and, under
-    torchrun, joins its group). ``-1`` is every visible card (one process on
-    the CPU, or where there is no card: the device rule then raises); ``N``
-    is ``N`` (gloo ranks on the CPU). Raises for more ranks than cards, and
-    under torchrun for a count other than ``-1`` or ``world``."""
+                   cpu: bool = False, model_parallel: int = 1) -> int:
+    """How many ranks the ``train`` CLI starts for a mesh of
+    ``tpu.data_parallel × tpu.model_parallel``, with ``cards`` visible
+    cards, under torchrun's ``world`` ranks (or ``None``), on the CPU or
+    not. 1 means this process trains (and, under torchrun, joins its group).
+    ``data_parallel: -1`` is every visible card over ``model_parallel``
+    (``make_mesh``'s ``n // model``; one data index on the CPU, and one
+    process where there is no card: the device rule then raises); ``N`` is
+    ``N × model_parallel`` ranks (gloo ranks on the CPU). Raises for more
+    ranks than cards, and under torchrun for a mesh of other than ``world``
+    ranks."""
     if data_parallel == 0 or data_parallel < -1:
         raise ValueError(f"tpu.data_parallel is {data_parallel}: -1 (every card) or N >= 1")
+    if model_parallel < 1:
+        raise ValueError(f"tpu.model_parallel is {model_parallel}: N >= 1")
     if world is not None:
-        if data_parallel not in (-1, world):
+        if world % model_parallel:
+            raise ValueError(f"tpu.model_parallel is {model_parallel} under torchrun's {world} "
+                             "ranks: start a multiple of it")
+        if data_parallel not in (-1, world // model_parallel):
             raise ValueError(f"tpu.data_parallel is {data_parallel} under torchrun's {world} "
-                             f"ranks: set it to -1 or {world}")
+                             f"ranks at tpu.model_parallel {model_parallel}: set it to -1 or "
+                             f"{world // model_parallel}")
         return 1
     if data_parallel == -1:
-        return 1 if cpu else max(cards, 1)
-    if data_parallel > 1 and not cpu and data_parallel > cards:
-        raise ValueError(f"tpu.data_parallel is {data_parallel}, and {cards} CUDA cards are "
-                         "visible")
-    return data_parallel
+        if cpu:
+            data_parallel = 1
+        elif cards == 0:
+            return 1
+        elif cards % model_parallel:  # make_mesh asserts the same
+            raise ValueError(f"tpu.data_parallel is -1 at tpu.model_parallel {model_parallel}, "
+                             f"and {cards} CUDA cards are visible: not a multiple of it")
+        else:
+            data_parallel = cards // model_parallel
+    n = data_parallel * model_parallel
+    if n > 1 and not cpu and n > cards:
+        raise ValueError(f"tpu.data_parallel x tpu.model_parallel is {data_parallel} x "
+                         f"{model_parallel} = {n}, and {cards} CUDA cards are visible")
+    return n
 
 
 def free_port() -> int:

@@ -6,14 +6,18 @@
 Creates ``./logs/<model>/``, copies the config there as ``config.json``,
 resumes from the newest ``G_``/``D_`` checkpoint pair in it if there is one,
 and trains (``training.loop.run``). It runs on the CUDA card unless
-``--device cpu`` is given. Data parallel over cards, as JAX's loop builds
-its mesh from ``tpu.data_parallel``: ``-1`` (the default) starts one rank
-per visible card, ``N`` starts ``N`` (gloo ranks with ``--device cpu``,
-where ``-1`` is one process). Under ``torchrun --nproc_per_node N -m
-smart_vocoder_torch.train ...`` torchrun starts the ranks instead, and
-``tpu.data_parallel`` must be ``-1`` or ``N``. Each rank joins the group
-(NCCL on its card, gloo on the CPU) and trains ``train.batch_size`` rows of
-every step; a rank that fails makes the command fail.
+``--device cpu`` is given. Over cards, as JAX's loop builds its mesh from
+``tpu.data_parallel`` and ``tpu.model_parallel``: one rank a card,
+``data_parallel × model_parallel`` of them, where ``data_parallel: -1`` (the
+default) is every visible card over ``model_parallel``; with ``--device
+cpu`` they are gloo ranks, and ``-1`` is one data index. Under ``torchrun
+--nproc_per_node N -m smart_vocoder_torch.train ...`` torchrun starts the
+ranks instead, and ``N`` must be ``data_parallel × model_parallel`` (a
+multiple of ``model_parallel`` at ``-1``). Each rank joins the group (NCCL
+on its card, gloo on the CPU) and trains ``train.batch_size /
+model_parallel`` rows of every step; the ranks of a model group split the
+optimizer state between them (``parallel/mesh.py``). A rank that fails makes
+the command fail.
 """
 
 from __future__ import annotations
@@ -44,7 +48,8 @@ def main(argv=None) -> None:
     hps = get_hparams(rest)
     cpu = ns.device is not None and torch.device(ns.device).type == "cpu"
     n = dist_lib.ranks_to_start(int(hps.tpu.get("data_parallel", -1)),
-                                torch.cuda.device_count(), dist_lib.torchrun_world(), cpu)
+                                torch.cuda.device_count(), dist_lib.torchrun_world(), cpu,
+                                int(hps.tpu.get("model_parallel", 1)))
     if n == 1:
         train_rank(hps, ns.max_steps, ns.device)
     else:

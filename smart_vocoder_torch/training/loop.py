@@ -18,8 +18,14 @@
 - Every ``eval_interval`` steps: ``eval/mel_l1`` over ``tpu.eval_samples``
   validation utterances (also written to ``train.log``), then a save.
 - Under ``torch.distributed`` only the chief (rank 0) logs, evaluates and
-  saves; every rank restores, and every rank stops unless all of them
-  resumed the same step and epoch.
+  writes the pairs; every rank restores, and every rank stops unless all of
+  them resumed the same step and epoch.
+- The ranks form JAX's ``('data', 'model')`` mesh (``parallel/mesh.py``)
+  with ``tpu.model_parallel`` ranks on the model axis: each rank trains
+  ``train.batch_size / model_parallel`` rows, so a step trains
+  ``batch_size × data`` rows as JAX's loop does (``loop.py:79-86``), and the
+  optimizers keep each rank's share of the moments. The chief's model group
+  gathers them for each save.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from smart_vocoder_torch.data import AudioSpecDataset, BucketedLoader, BucketSam
 from smart_vocoder_torch.inference import set_precision_flags
 from smart_vocoder_torch.ops import MelConfig, mel_spectrogram, spec_to_mel
 from smart_vocoder_torch.parallel import dist as dist_lib
+from smart_vocoder_torch.parallel.mesh import Mesh
 from smart_vocoder_torch.training.optim import lr_for_epoch, set_learning_rate
 from smart_vocoder_torch.training.step import init_train_state, make_train_step
 from smart_vocoder_torch.utils import logging_utils
@@ -57,9 +64,8 @@ def run(hps, max_steps: Optional[int] = None, device=None) -> None:
     unless the caller names another); the equivalent of train.py's run()
     (train.py:52-120). Inside a process group (``parallel.dist``) every rank
     calls it."""
-    if int(hps.tpu.get("model_parallel", 1)) > 1:
-        raise ValueError("tpu.model_parallel > 1: the tensor-parallel axis is not ported; "
-                         "the port is data parallel only")
+    mesh = Mesh.build(int(hps.tpu.get("model_parallel", 1)))
+    rows = mesh.rows_per_rank(hps.train.batch_size)
     device = resolve_device(device)
     set_precision_flags()
     if hps.tpu.get("debug_nans"):  # fail at the first NaN/Inf a backward makes
@@ -75,11 +81,13 @@ def run(hps, max_steps: Optional[int] = None, device=None) -> None:
         logger.info(hps)
         logging_utils.check_git_hash(hps.model_dir, logger)
         logger.info("data parallel: %s", dist_lib.describe(device))
+        logger.info("mesh: %s; %d of each step's %d rows a rank", mesh, rows,
+                    hps.train.batch_size * mesh.data)
 
     use_sid = bool(hps.model.get("use_spk_embed", False)) and hps.data.n_speakers > 0
     cache_specs = bool(hps.tpu.get("cache_specs", False))
     train_dataset = AudioSpecDataset(hps.data.training_files, hps.data, cache_specs=cache_specs)
-    train_sampler = BucketSampler(train_dataset.lengths, hps.train.batch_size,
+    train_sampler = BucketSampler(train_dataset.lengths, rows,
                                   list(hps.tpu.bucket_boundaries), num_replicas=world,
                                   rank=rank, shuffle=True)
     train_loader = BucketedLoader(train_dataset, train_sampler, with_sid=use_sid, device=device)
@@ -92,7 +100,7 @@ def run(hps, max_steps: Optional[int] = None, device=None) -> None:
         eval_loader = BucketedLoader(eval_dataset, eval_sampler, with_sid=use_sid,
                                      device=device)
 
-    state = init_train_state(hps, seed=hps.train.seed, device=device)
+    state = init_train_state(hps, seed=hps.train.seed, device=device, mesh=mesh)
     mngr = CheckpointManager(hps.model_dir, keep=hps.tpu.keep_ckpts)
     state, epoch_start, resumed = try_resume(mngr, state)
     # a rank that read no pair, or another one, would train other weights on the same gradients
@@ -112,8 +120,9 @@ def run(hps, max_steps: Optional[int] = None, device=None) -> None:
     mel_cfg = MelConfig.from_hparams(hps)
 
     def save(step: int, epoch: int, lr: float) -> None:
+        if mesh.data_index == 0:  # the chief's model group: its moments are gathered
+            mngr.save(step, state, epoch, lr, write=is_chief)
         if is_chief:
-            mngr.save(step, state, epoch, lr)
             logger.info("Saving model and optimizer state at iteration %d to %s/G_%d.pth (+D)",
                         step, hps.model_dir, step)
 
@@ -124,7 +133,7 @@ def run(hps, max_steps: Optional[int] = None, device=None) -> None:
     profiler = StepProfiler(f"{hps.model_dir}/profile",
                             global_step + int(hps.tpu.get("profile_start_step", 10)),
                             int(hps.tpu.get("profile_steps", 0)) if is_chief else 0, device)
-    samples_per_step = hps.train.batch_size * world * hps.train.segment_size
+    samples_per_step = hps.train.batch_size * mesh.data * hps.train.segment_size
     try:
         for epoch in range(epoch_start, hps.train.epochs + 1):
             train_sampler.set_epoch(epoch)

@@ -29,7 +29,10 @@ Under ``torch.distributed`` (``parallel/dist.py``) each phase's gradients
 are averaged over the ranks with one flat all-reduce before their norm and
 clamp, and each rank's KL term is divided by the global mask sum over the
 rank count, so the averaged gradient is the global batch's, as under JAX's
-``pjit``; the other losses are means over equal per-rank batches.
+``pjit``; the other losses are means over equal per-rank batches. Under a
+model axis (``parallel/mesh.py``, ``training/sharded.py``) the norm and the
+clamp still see the full averaged gradients; each optimizer then takes
+this rank's block of those its rule shards.
 
 Randomness is explicit: the posterior noise ``eps_q`` (B, T, inter), the
 slice starts ``ids_slice`` (B,) and the jigsaw permutation ``perm`` (4,) are
@@ -50,7 +53,9 @@ from smart_vocoder_torch.models import build_discriminator, build_synthesizer
 from smart_vocoder_torch.nn import set_compute_dtype
 from smart_vocoder_torch.ops import MelConfig, mel_spectrogram, slice_segments, spec_to_mel
 from smart_vocoder_torch.parallel import dist as dist_lib
+from smart_vocoder_torch.parallel.mesh import Mesh
 from smart_vocoder_torch.training.optim import make_optimizer
+from smart_vocoder_torch.training.sharded import ShardedAdamW
 from smart_vocoder_torch.utils.device import resolve_device
 from smart_vocoder_torch.utils.init import init_discriminator, init_synthesizer
 
@@ -90,11 +95,12 @@ class TrainState:
 
 
 def init_train_state(hps, seed: int = 1234, device=None, net_g=None,
-                     net_d=None) -> TrainState:
+                     net_d=None, mesh: Optional[Mesh] = None) -> TrainState:
     """Both nets on ``device`` (the card unless the caller names another),
-    in training mode, computing in the config's dtype, with their optimizers.
-    Nets not given are built from the config and seeded: G with the plain
-    init (no ``conv_post`` gain, as JAX's ``init_train_state``), D from
+    in training mode, computing in the config's dtype, with their optimizers
+    (over this rank's share of the parameters where ``mesh`` has a model
+    axis). Nets not given are built from the config and seeded: G with the
+    plain init (no ``conv_post`` gain, as JAX's ``init_train_state``), D from
     ``seed + 1``."""
     device = resolve_device(device)
     if net_g is None:
@@ -105,8 +111,8 @@ def init_train_state(hps, seed: int = 1234, device=None, net_g=None,
     for net in (net_g, net_d):
         net.to(device).train()
         set_compute_dtype(net, dtype)
-    return TrainState(net_g, net_d, make_optimizer(hps, net_g.parameters()),
-                      make_optimizer(hps, net_d.parameters()))
+    return TrainState(net_g, net_d, make_optimizer(hps, net_g.parameters(), mesh),
+                      make_optimizer(hps, net_d.parameters(), mesh))
 
 
 def nda_jigsaw(y: torch.Tensor, y_hat: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
@@ -169,8 +175,13 @@ def make_train_step(hps, device=None):
         if distributed:
             grads = dist_lib.average_gradients(grads)
         norm = global_norm(grads)
-        for p, g in zip(params, grads):
-            p.grad = g if clip_val is None else g.clamp(-clip_val, clip_val)
+        if clip_val is not None:
+            grads = [g.clamp(-clip_val, clip_val) for g in grads]
+        if isinstance(opt, ShardedAdamW):
+            opt.take_gradients(grads)
+        else:
+            for p, g in zip(params, grads):
+                p.grad = g
         opt.step()
         opt.zero_grad(set_to_none=True)
         return norm.detach()

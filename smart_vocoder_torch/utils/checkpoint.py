@@ -12,6 +12,13 @@ mirrors ``.pth`` files with an empty optimizer; the port has no orbax.)
 ``s`` holds the state after step ``s`` ran, ``s + 1`` steps in all; the save
 at the end of a run holds ``s`` steps. Resume reads the steps from
 ``iteration``.
+
+Under a model axis (``parallel/mesh.py``) each rank keeps the AdamW moments
+of its share of the parameters, and the pair still holds the full state:
+every rank of the writer's model group calls ``save``, whose optimizer state
+dicts gather the moments over the group (``training/sharded.py``), and only
+the writer writes. ``restore`` reads the full pair on every rank, and each
+keeps its own share, so a pair resumes at any mesh, one process included.
 """
 
 from __future__ import annotations
@@ -57,13 +64,19 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def save(self, step: int, state, epoch: int, learning_rate: float) -> None:
+    def save(self, step: int, state, epoch: int, learning_rate: float,
+             write: bool = True) -> None:
         """Write the pair for ``step``; then, with both files in place, remove
-        the pairs (and stray single files) older than the newest ``keep``."""
-        save_torch_checkpoint(self.path("G", step), state.net_g, state.opt_g, state.step,
-                              learning_rate, epoch)
-        save_torch_checkpoint(self.path("D", step), state.net_d, state.opt_d, state.step,
-                              learning_rate, epoch)
+        the pairs (and stray single files) older than the newest ``keep``.
+        Both optimizers' state dicts are taken before anything is written;
+        under a model axis that is a collective of the model group, whose
+        other ranks call this with ``write=False`` and write nothing."""
+        optimizers = {"G": state.opt_g.state_dict(), "D": state.opt_d.state_dict()}
+        if not write:
+            return
+        for tag, net in (("G", state.net_g), ("D", state.net_d)):
+            save_torch_checkpoint(self.path(tag, step), net, optimizers[tag], state.step,
+                                  learning_rate, epoch)
         if self.keep > 0:
             kept = set(self.steps()[-self.keep:])
             for tag, steps in self._files().items():

@@ -95,16 +95,18 @@ def load_reference_discriminator(pth_path: str, net: torch.nn.Module) -> int:
     return int(payload.get("iteration", 0))
 
 
-def save_torch_checkpoint(path: str, net: torch.nn.Module, optimizer: torch.optim.Optimizer,
+def save_torch_checkpoint(path: str, net: torch.nn.Module, optimizer_state: Dict[str, Any],
                           iteration: int, learning_rate: float, epoch: int) -> None:
     """Write ``{model, iteration, optimizer, learning_rate, epoch}``: the
     reference payload (utils.py:46-56) plus the epoch. ``model`` is ``net``'s
     state dict (the f32 master weights: ``weight_g`` / ``weight_v``, under
     spectral norm ``weight_orig`` / ``weight_u``), ``optimizer`` the
-    optimizer's own state dict. Written to a temporary name beside ``path``
-    and moved into place, so a reader never sees half a file."""
+    optimizer's state dict as its ``state_dict()`` gives it (full-shaped
+    under a model axis too: ``training/sharded.py``). Written to a temporary
+    name beside ``path`` and moved into place, so a reader never sees half a
+    file."""
     tmp = f"{path}.tmp{os.getpid()}"
     torch.save({"model": net.state_dict(), "iteration": int(iteration),
-                "optimizer": optimizer.state_dict(), "learning_rate": float(learning_rate),
+                "optimizer": optimizer_state, "learning_rate": float(learning_rate),
                 "epoch": int(epoch)}, tmp)
     os.replace(tmp, path)

@@ -322,13 +322,15 @@ def test_train_cli_starts_its_ranks(tmp_path):
 
 
 def test_a_failing_rank_fails_the_cli(tmp_path, monkeypatch):
-    """Both spawned ranks stop at a config the loop refuses: the CLI raises
-    (a non-zero exit from the command line)."""
+    """Both spawned ranks stop at a config the loop refuses (a
+    ``train.batch_size`` that ``tpu.model_parallel`` does not divide): the CLI
+    raises (a non-zero exit from the command line)."""
     from smart_vocoder_torch import train
 
     write_run_config(tmp_path)
     cfg = json.loads((tmp_path / "cfg.json").read_text())
-    cfg["tpu"].update(data_parallel=2, model_parallel=2)
+    cfg["train"]["batch_size"] = 3
+    cfg["tpu"].update(data_parallel=1, model_parallel=2)
     (tmp_path / "cfg.json").write_text(json.dumps(cfg))
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(k, raising=False)
