@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA H100: the serving paths, the
 training-kernel A/B, the packed-MRF variants, the GAN train step, the
 training runtime, the data axis and the model axis (on every card where
-there are several).
+there are several), and the headline entry point.
 
     python3 chip_smoke.py
 
@@ -161,6 +161,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    interleaved rounds with its range), busy share (the kernels apart from
    NCCL's, which run on their own stream and wait inside the kernel; NCCL's
    ms beside it) and the card. With one card (b)-(d) print why they did not run.
+14. the headline entry point: ``python -m smart_vocoder_torch.bench --iters
+   10 --no-train`` in a fresh process (cuDNN's search as the entry point
+   leaves it), on the JAX package's fidelity weights rebuilt in numpy
+   (``utils/golden.py``): hifi 2 and hifi 0 at B = 32 x 1000, each the mean
+   of 10 calls after 3, and mel-L1 against the golden fixture's torch
+   reference of the f32 path (TF32 off) and of the timed path, each <= 1e-2;
+   ``rtf_fast_bf16`` present. First the recipe's mel and noise
+   (``fidelity_inputs``) against the fixture's, within 1e-4. Its JSON line is
+   printed, prefixed, before the kernels' record.
 
 Every kernel's record carries its bound: the larger of its operations over
 the card's peak for their type (989 TFLOP/s, bf16 tensor cores: every conv
@@ -1641,6 +1650,45 @@ def model_axis_phase(card: str, hps) -> None:
             ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
 
 
+FIDELITY_TARGET = 1e-2  # mel-L1 against the torch reference (BASELINE.json)
+INPUTS_TOL = 1e-4  # the recipe's mel / noise against the fixture's (JAX's own: 6.4e-5, 3.3e-5)
+
+
+def headline_phase(card: str, hps) -> dict:
+    """14. ``python -m smart_vocoder_torch.bench --iters 10 --no-train`` in a
+    fresh process (the search setting of this script does not reach it), on
+    the fidelity recipe's weights, held to the golden fixture; the recipe's
+    own inputs against the fixture's first. Returns the child's JSON line."""
+    from smart_vocoder_torch.utils.golden import fidelity_inputs
+
+    gz = np.load(os.path.join(ROOT, "tests", "fixtures", "golden_iitp_base.npz"))
+    mel, _, eps = fidelity_inputs(hps)
+    d_mel = float(np.abs(mel - gz["mel"]).max())
+    d_eps = float(np.abs(eps - gz["eps"]).max())
+    log(f"fidelity_inputs (numpy) against the fixture: mel {d_mel:.2e}, eps {d_eps:.2e} "
+        f"(bound {INPUTS_TOL:g})")
+    if not (d_mel <= INPUTS_TOL and d_eps <= INPUTS_TOL):
+        raise RuntimeError("the recipe's inputs are not the fixture's")
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "smart_vocoder_torch.bench", "--iters", "10",
+                           "--no-train"], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    for line in proc.stderr.strip().splitlines():
+        log("  bench: " + line)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the headline entry point failed (exit {proc.returncode}):\n"
+                           f"{proc.stdout[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"headline (python -m smart_vocoder_torch.bench, {time.time() - t0:.1f} s): "
+        f"{json.dumps(out)}")
+    value = out.get("value", float("nan"))
+    if not (out.get("mel_l1_vs_reference", np.inf) <= FIDELITY_TARGET
+            and out.get("mel_l1_serving_hifi", np.inf) <= FIDELITY_TARGET
+            and "rtf_fast_bf16" in out and np.isfinite(value) and value > 0
+            and out.get("hifi") == 2 and out.get("device") == card):
+        raise RuntimeError(f"the headline entry point: {out}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2353,6 +2401,11 @@ def main() -> int:
     # 13. the model axis: the optimizer state split over a model group of cards
     torch.cuda.empty_cache()
     model_axis_phase(card, hps)
+
+    log(f"-- phase 14 starts at {time.time() - t_start:.0f} s")
+    # 14. the headline entry point on the fidelity recipe, held to the fixture
+    torch.cuda.empty_cache()
+    headline_phase(card, hps)
 
     kernels = [
         {"name": "mrf_stage", "route": "cuda",

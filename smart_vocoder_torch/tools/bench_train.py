@@ -56,10 +56,9 @@ from smart_vocoder_torch.tools import device_busy_ms
 from smart_vocoder_torch.tools.bench_streaming import device_label
 from smart_vocoder_torch.training import Batch, init_train_state, make_train_step
 from smart_vocoder_torch.utils.device import resolve_device
-from smart_vocoder_torch.utils.flops import train_step_flops
+from smart_vocoder_torch.utils.flops import H100_BF16_PEAK, train_step_flops
 
 SEED = 1234
-PEAK_BF16 = 989e12  # FLOP/s, dense bf16 tensor cores (H100 SXM data sheet)
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 LOSSES = ("loss/g/total", "loss/d/total", "loss/g/fm", "loss/g/mel", "loss/g/kl")
 
@@ -151,7 +150,7 @@ def main(device=None, hps=None, frames: int = 1000, rounds: int = 5, iters: int 
                 results[leg]["peak_mem_gib"] = max(results[leg]["peak_mem_gib"] or 0.0, peak)
 
     out = {"device": label, "rows": rows, "frames": frames, "audio_s_per_step": audio_s,
-           "model_tflop_per_step": flops / 1e12, "bound_ms": flops / PEAK_BF16 * 1e3,
+           "model_tflop_per_step": flops / 1e12, "bound_ms": flops / H100_BF16_PEAK * 1e3,
            "legs": {}}
     for leg in legs:
         res = results[leg]

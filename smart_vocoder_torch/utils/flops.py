@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import math
 
+H100_BF16_PEAK = 989e12  # FLOP/s, dense bf16 tensor cores (H100 SXM data sheet)
+
 
 def _conv(t_out: float, cin: int, cout: int, k: int, groups: int = 1) -> float:
     return 2.0 * t_out * cout * (cin // groups) * k
@@ -82,7 +84,9 @@ def generator_flops(t_frames: float, hps) -> float:
 
 
 def synthesis_flops(hps, batch: int, frames: int) -> float:
-    """Full mel->wav inference: enc_p + reverse flow + decoder."""
+    """Full mel->wav inference: enc_p + reverse flow + decoder. Over a step's
+    seconds and ``H100_BF16_PEAK`` it is the headline's ``mfu``
+    (``smart_vocoder_torch/bench.py``)."""
     t = float(batch * frames)
     return (mel_encoder_flops(t, hps) + flow_flops(t, hps)
             + generator_flops(t, hps))

@@ -1,14 +1,17 @@
-"""Seeded full-size weights for the card.
+"""Seeded full-size weights from a ``torch.Generator``.
 
 The JAX package's fidelity weights (``smart_vocoder_tpu/utils/golden.py:
-fidelity_params``) come from a threefry init that torch cannot reproduce, and
-at iitp_base size (42.9 M parameters) they are too large to commit. So on the
-card the port builds its own weights from a ``torch.Generator``: torch's conv
-default init (uniform +-1/sqrt(fan_in), weight-norm ``g = ||v||``), the
-coupling ``post`` weight at zero as the JAX package initialises it, and the
-same ``conv_post`` x30 gain (golden.py:23, :45-46) that lifts a fresh
-generator's output from near-silence to speech-like levels, so that mel-L1
-measures the implementation and not the ``log(clamp(., 1e-5))`` floor.
+fidelity_params``) are rebuilt without JAX by ``utils/golden.py:
+fidelity_state_dict``, and the headline benchmark (``bench.py``) and every
+check against the golden fixture use those. The weights here are drawn from
+a ``torch.Generator`` instead: ``chip_smoke.py``'s phases 4-13 and the
+records they wrote use them (seed 1234), and the trainer starts from them.
+They follow the same rule: torch's conv default init (uniform
++-1/sqrt(fan_in), weight-norm ``g = ||v||``), the coupling ``post`` weight at
+zero as the JAX package initialises it, and the same ``conv_post`` x30 gain
+(golden.py:23, :45-46) that lifts a fresh generator's output from
+near-silence to speech-like levels, so that mel-L1 measures the
+implementation and not the ``log(clamp(., 1e-5))`` floor.
 A trainer starts from the plain init (``conv_post_gain=1``), as the JAX
 package's ``init_train_state`` does: the gain is a serving-fidelity device.
 """

@@ -40,6 +40,21 @@ def path_to_torch_key(path: Tuple[str, ...]) -> str:
     return "emb_g.weight" if key == "emb_g.embedding" else key
 
 
+def torch_key_to_path(key: str) -> Tuple[str, ...]:
+    """The inverse of :func:`path_to_torch_key`: ``dec.resblocks.7.convs1.2.weight_v``
+    -> ``('dec', 'resblocks_7', 'convs1_2', 'weight_v')``, ``emb_g.weight`` ->
+    ``('emb_g', 'embedding')``."""
+    path: list[str] = []
+    for part in key.split("."):
+        if part.isdigit() and path:
+            path[-1] = f"{path[-1]}_{part}"
+        else:
+            path.append(part)
+    if path[:1] == ["emb_g"] and path[-1] == "weight":
+        path[-1] = "embedding"
+    return tuple(path)
+
+
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
     for k, v in tree.items():
         if isinstance(v, Mapping):

@@ -967,3 +967,17 @@ def test_train_model_axis_on_cards(tmp_path):
         payload = load_torch_checkpoint(str(tmp_path / "logs" / "mp" / f"{tag}_5.pth"))
         assert [tuple(st["exp_avg"].shape) for _, st in sorted(
             payload["optimizer"]["state"].items())] == [tuple(p.shape) for p in net.parameters()]
+
+
+@pytest.mark.cuda
+def test_headline_entry_point_on_the_card():
+    """``bench.main`` at iitp_base on the fidelity recipe's weights, B = 2 x
+    1000, 2 timed calls a leg: the f32 path within mel-L1 1e-4 of the golden
+    fixture's torch reference (TF32 off), the timed hifi-2 path within 1e-2,
+    and the hifi-0 datapoint present."""
+    from smart_vocoder_torch import bench
+
+    out = bench.main(device="cuda", batch=2, iters=2, train=False)
+    assert out["hifi"] == 2 and out["value"] > 0 and out["rtf_fast_bf16"] > 0
+    assert out["mel_l1_vs_reference"] <= 1e-4, out
+    assert out["mel_l1_serving_hifi"] <= 1e-2, out

@@ -108,7 +108,9 @@ def test_port_imports_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "missing = {'smart_vocoder_torch.kernels.mrf', 'smart_vocoder_torch.training.loop',\n"
-        "           'smart_vocoder_torch.data.pipeline', 'smart_vocoder_torch.train'} - set(mods)\n"
+        "           'smart_vocoder_torch.data.pipeline', 'smart_vocoder_torch.train',\n"
+        "           'smart_vocoder_torch.bench', 'smart_vocoder_torch.utils.golden',\n"
+        "           'smart_vocoder_torch.utils.jax_random'} - set(mods)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'orbax', 'smart_vocoder_tpu'))\n"
         "print('MODULES', len(mods), 'NOT WALKED', missing, 'BAD', bad)\n"
