@@ -166,7 +166,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    leaves it), on the JAX package's fidelity weights rebuilt in numpy
    (``utils/golden.py``): hifi 2 and hifi 0 at B = 32 x 1000, each the mean
    of 10 calls after 3, and mel-L1 against the golden fixture's torch
-   reference of the f32 path (TF32 off) and of the timed path, each <= 1e-2;
+   reference of the f32 path (TF32 off, <= 1e-4) and of the timed path
+   (<= 7e-3), under the reported ``fidelity_target`` of 1e-2;
    ``rtf_fast_bf16`` present. First the recipe's mel and noise
    (``fidelity_inputs``) against the fixture's, within 1e-4. Its JSON line is
    printed, prefixed, before the kernels' record.
@@ -1650,7 +1651,12 @@ def model_axis_phase(card: str, hps) -> None:
             ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
 
 
-FIDELITY_TARGET = 1e-2  # mel-L1 against the torch reference (BASELINE.json)
+# mel-L1 against the torch reference's waveform: the f32 path as
+# tests/test_torch_cuda.py holds it (1.494e-6 on the H100), and the timed hifi-2
+# path at about 1.5x its reading (0.00453); both well inside the reported
+# fidelity_target of 1e-2, which TF32 or bf16 in the f32 path would still meet
+REF_TOL = 1e-4
+SERVING_HIFI_TOL = 7e-3
 INPUTS_TOL = 1e-4  # the recipe's mel / noise against the fixture's (JAX's own: 6.4e-5, 3.3e-5)
 
 
@@ -1681,8 +1687,9 @@ def headline_phase(card: str, hps) -> dict:
     log(f"headline (python -m smart_vocoder_torch.bench, {time.time() - t0:.1f} s): "
         f"{json.dumps(out)}")
     value = out.get("value", float("nan"))
-    if not (out.get("mel_l1_vs_reference", np.inf) <= FIDELITY_TARGET
-            and out.get("mel_l1_serving_hifi", np.inf) <= FIDELITY_TARGET
+    if not (out.get("mel_l1_vs_reference", np.inf) <= REF_TOL
+            and out.get("mel_l1_serving_hifi", np.inf) <= SERVING_HIFI_TOL
+            and out.get("fidelity_target") == 1e-2
             and "rtf_fast_bf16" in out and np.isfinite(value) and value > 0
             and out.get("hifi") == 2 and out.get("device") == card):
         raise RuntimeError(f"the headline entry point: {out}")

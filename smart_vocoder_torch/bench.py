@@ -42,8 +42,8 @@ fixture leaves the fidelity keys out.
 Usage: python -m smart_vocoder_torch.bench [--no-kernels] [--wn-kernels] [--f32]
        [--fast] [--no-train] [--batch B] [--iters N] [--config PATH] [--device cpu]
 (``--no-kernels``, ``--wn-kernels`` are ``bench.py``'s ``--no-pallas``,
-``--pallas-wn``; ``BENCH_BATCH``, ``BENCH_ITERS`` and ``BENCH_TRAIN_TIMEOUT``
-set the defaults as there.)
+``--pallas-wn``; ``--batch`` and ``--iters`` default to 32 and 30. The train
+phase is given ``TRAIN_TIMEOUT`` seconds.)
 """
 
 from __future__ import annotations
@@ -63,22 +63,21 @@ from smart_vocoder_torch.config import load_config
 from smart_vocoder_torch.inference import Vocoder
 from smart_vocoder_torch.kernels import LAUNCHES, reset_launch_counts
 from smart_vocoder_torch.ops import MelConfig, mel_spectrogram
-from smart_vocoder_torch.tools.bench_streaming import device_label
 from smart_vocoder_torch.utils import jax_random
-from smart_vocoder_torch.utils.device import resolve_device
+from smart_vocoder_torch.utils.device import device_label, resolve_device
 from smart_vocoder_torch.utils.flops import H100_BF16_PEAK, synthesis_flops
-from smart_vocoder_torch.utils.golden import fidelity_state_dict
+from smart_vocoder_torch.utils.golden import NOISE_SCALE, fidelity_state_dict
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(_ROOT, "configs", "iitp_base.json")
 FIXTURE = os.path.join(_ROOT, "tests", "fixtures", "golden_iitp_base.npz")
-BATCH = int(os.environ.get("BENCH_BATCH", 32))
+BATCH = 32
 FRAMES = 1000  # ~11.6 s of audio a row at hop 256 / 22.05 kHz
 WARMUP = 3
-ITERS = int(os.environ.get("BENCH_ITERS", 30))
-NOISE_SCALE = 0.667
+ITERS = 30
 NOISE_SEED = 3  # bench.py's jax.random.key(3)
 FIDELITY_TARGET = 1e-2
+TRAIN_TIMEOUT = 600  # s; the bf16 leg takes ~75 s on an H100
 
 
 def log(msg: str) -> None:
@@ -163,7 +162,7 @@ def train_metrics(config: str) -> dict:
         p = subprocess.run(
             [sys.executable, "-m", "smart_vocoder_torch.tools.bench_train", "--legs", "bf16",
              "--config", config], capture_output=True, text=True, cwd=_ROOT,
-            timeout=float(os.environ.get("BENCH_TRAIN_TIMEOUT", 1500)))
+            timeout=TRAIN_TIMEOUT)
     except subprocess.TimeoutExpired:
         log("train phase: timed out; omitting train metrics")
         return {}

@@ -42,7 +42,6 @@ from __future__ import annotations
 import argparse
 import os
 import statistics
-import subprocess
 import time
 
 import numpy as np
@@ -53,7 +52,7 @@ from smart_vocoder_torch.inference import Vocoder
 from smart_vocoder_torch.models import build_synthesizer
 from smart_vocoder_torch.ops import positional_eps
 from smart_vocoder_torch.serving import StreamServer
-from smart_vocoder_torch.utils.device import resolve_device
+from smart_vocoder_torch.utils.device import device_label, resolve_device
 from smart_vocoder_torch.utils.init import init_synthesizer
 
 POINTS = ((1024, 128), (384, 96), (256, 64))
@@ -62,16 +61,6 @@ STREAM_POINT = (384, 96)
 SEAM_FRAMES = 1536
 SEED = 1234
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-
-def device_label(device: torch.device) -> str:
-    """The card's name and power limit (``nvidia-smi``), or what the CPU run is."""
-    if device.type != "cuda":
-        return "cpu: host times, not a device measurement"
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def interleaved_ms(legs: dict, iters: int, rounds: int) -> dict:

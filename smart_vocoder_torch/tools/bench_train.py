@@ -53,9 +53,8 @@ from smart_vocoder_torch.config import load_config
 from smart_vocoder_torch.inference import set_precision_flags
 from smart_vocoder_torch.ops import stft_magnitude
 from smart_vocoder_torch.tools import device_busy_ms
-from smart_vocoder_torch.tools.bench_streaming import device_label
 from smart_vocoder_torch.training import Batch, init_train_state, make_train_step
-from smart_vocoder_torch.utils.device import resolve_device
+from smart_vocoder_torch.utils.device import device_label, resolve_device
 from smart_vocoder_torch.utils.flops import H100_BF16_PEAK, train_step_flops
 
 SEED = 1234

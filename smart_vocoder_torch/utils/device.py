@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -14,3 +16,13 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
         raise RuntimeError("no CUDA device: this entry point runs on the card by default; "
                            'pass device="cpu" to run on the CPU')
     return torch.device("cuda")
+
+
+def device_label(device: torch.device) -> str:
+    """The card's name and power limit (``nvidia-smi``), or what the CPU run is."""
+    if device.type != "cuda":
+        return "cpu: host times, not a device measurement"
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
