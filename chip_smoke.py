@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA H100: the serving paths, the
 training-kernel A/B, the packed-MRF variants, the GAN train step, the
 training runtime, the data axis and the model axis (on every card where
-there are several), and the headline entry point.
+there are several), the headline entry point, and the training-evidence
+tools (a short speaker-conditioned convergence run and its samples).
 
     python3 chip_smoke.py
 
@@ -171,6 +172,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``rtf_fast_bf16`` present. First the recipe's mel and noise
    (``fidelity_inputs``) against the fixture's, within 1e-4. Its JSON line is
    printed, prefixed, before the kernels' record.
+15. the training-evidence tools: ``tools/make_synth_data.py --ms`` (64
+   clips, 4 speakers), ``python -m smart_vocoder_torch.train`` on its config
+   (iitp_base conditioned, full width, bf16, B = 16, segment 8192) for 200
+   steps in a subprocess, its ``train.log`` read by
+   ``tools/report_convergence.py``'s parser (the table printed; a finite row
+   every 20 steps, an eval at step 0; mel and KL of the step-180 row under
+   ``MS_MEL_BOUND`` and ``MS_KL_BOUND``, JAX's step-200 reading beside each),
+   then ``tools/make_ms_samples.py`` on the step-200 ``G_*.pth`` for 2
+   validation clips x sids 0 and 2: one launch each of ``up_mrf_stage`` and
+   ``mrf_stage`` a call (counts reset before each) and no other kernel,
+   finite mel-L1, the two sids' audio different. Prints its wall.
 
 Every kernel's record carries its bound: the larger of its operations over
 the card's peak for their type (989 TFLOP/s, bf16 tensor cores: every conv
@@ -843,27 +855,18 @@ STEADY_FROM = 5            # step statistics over steps STEADY_FROM .. the last
 
 def loss_lines(log_path: str) -> dict:
     """{step: [loss_d, loss_g, fm, mel, kl]} from the loop's loss list lines
-    (the parse of tests/test_multiprocess.py:_loss_trajectory)."""
-    import ast
-    import re
+    (``tools/report_convergence.py:parse``; a line with a non-finite value
+    does not parse, so its step is missing)."""
+    from smart_vocoder_torch.tools.report_convergence import parse
 
-    out = {}
-    with open(log_path) as f:
-        for line in f:
-            m = re.search(r"(\[[-0-9eE+., ]+\])\s*$", line)
-            if m:
-                vals = ast.literal_eval(m.group(1))
-                if isinstance(vals, list) and len(vals) == 7:
-                    out[int(vals[5])] = vals[:5]
-    return out
+    return {int(r[5]): r[:5] for r in parse(log_path)[0]}
 
 
 def eval_lines(log_path: str) -> dict:
-    import re
+    """{step: eval/mel_l1} from the loop's eval lines (the same parser)."""
+    from smart_vocoder_torch.tools.report_convergence import parse
 
-    with open(log_path) as f:
-        return {int(m.group(1)): float(m.group(2)) for m in
-                re.finditer(r"eval step (\d+): mel_l1 (\S+)", f.read())}
+    return dict(parse(log_path)[1])
 
 
 def check_run_log(model_dir: str, steps, label: str) -> dict:
@@ -1696,6 +1699,94 @@ def headline_phase(card: str, hps) -> dict:
     return out
 
 
+# phase 15: the training-evidence tools -- a speaker-conditioned corpus, 200 steps, samples
+MS_STEPS = 200
+# bounds on the last loss line (step 180) of the 200-step run, from the card's runs
+# (this run: mel 21.59, KL 1.353; the 200-clip conditioned run of
+# tools/convergence_runs.py: 24.38, 1.137), with room for the card's run-to-run
+# drift; JAX's speaker-conditioned run read mel 26.79, KL 1.05 at step 200
+# (CONVERGENCE.md)
+MS_MEL_BOUND = 32.0
+MS_KL_BOUND = 3.0
+MS_CLIPS, MS_SIDS = 2, (0, 2)  # validation clips x speakers of the sample set
+
+
+def convergence_tools_phase(card: str, dev) -> dict:
+    """15. The short form of the port's convergence runs, through its tools:
+    ``tools/make_synth_data.py --ms`` (64 clips, 4 speakers), ``python -m
+    smart_vocoder_torch.train`` on its config for ``MS_STEPS`` steps in a
+    subprocess (``tpu.data_parallel: 1``), the log read by
+    ``tools/report_convergence.py``'s parser (a finite row every
+    ``log_interval`` steps; mel and KL of the last row under their bounds),
+    then ``tools/make_ms_samples.py`` on the last ``G_*.pth`` for
+    ``MS_CLIPS`` validation clips x ``MS_SIDS``: one launch each of
+    ``up_mrf_stage`` and ``mrf_stage`` a call and no other kernel, finite
+    mel-L1, and the two speakers' audio different. Raises on any failure."""
+    import math
+    import shutil
+    import tempfile
+
+    from smart_vocoder_torch.kernels import LAUNCHES, reset_launch_counts
+    from smart_vocoder_torch.tools import make_ms_samples, make_synth_data, report_convergence
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="svt_convergence_")
+    try:
+        cfg_path = make_synth_data.make_synth_data(os.path.join(work, "data"), ms=True)
+        with open(cfg_path) as f:
+            cfg = json.load(f)
+        cfg["tpu"]["data_parallel"] = 1  # one process on one card, whatever the machine
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f, indent=2)
+        model_dir, wall, _ = run_train_cli(work, cfg_path, "ms", MS_STEPS)
+        rows, evals = report_convergence.parse(os.path.join(model_dir, "train.log"))
+        every = cfg["train"]["log_interval"]
+        report = os.path.join(work, "report.md")
+        report_convergence.write_report(rows, evals, report, every=40)
+        with open(report) as f:
+            for line in f.read().strip().splitlines():
+                log("  " + line)
+        if [r[5] for r in rows] != list(range(0, MS_STEPS, every)):
+            raise RuntimeError(f"convergence run: loss rows at {[r[5] for r in rows]}, expected "
+                               f"every {every} steps (a non-finite row does not parse)")
+        if not all(math.isfinite(v) for r in rows for v in r) or [s for s, _ in evals] != [0]:
+            raise RuntimeError(f"convergence run: rows {rows}, evals {evals}")
+        mel, kl = rows[-1][3], rows[-1][4]
+        log(f"  convergence run ({MS_STEPS} steps through the CLI, {wall:.1f} s with the "
+            f"process): step {rows[-1][5]} mel {mel:.3f} (bound {MS_MEL_BOUND}; JAX at 200: "
+            f"26.79), KL {kl:.3f} (bound {MS_KL_BOUND}; JAX at 200: 1.05)  [{card}]")
+        if not (mel < MS_MEL_BOUND and kl < MS_KL_BOUND):
+            raise RuntimeError(f"convergence run: mel {mel}, KL {kl} over their bounds")
+
+        with open(cfg["data"]["validation_files"]) as f:
+            clips = [ln.split("|")[0] for ln in f.read().split()][:MS_CLIPS]
+        if make_ms_samples.generator_path(model_dir) != os.path.join(model_dir,
+                                                                    f"G_{MS_STEPS}.pth"):
+            raise RuntimeError(f"convergence run: no G_{MS_STEPS}.pth in {model_dir}")
+        voc = make_ms_samples.load_vocoder(cfg_path, model_dir, dev)
+        out_dir = os.path.join(work, "samples")
+        os.makedirs(out_dir)
+        for clip in clips:
+            wavs = []
+            for sid in MS_SIDS:
+                reset_launch_counts()
+                rec = make_ms_samples.sample(voc, clip, sid, out_dir)
+                launches = {k: v for k, v in LAUNCHES.items() if v}
+                if launches != {"mrf_stage": 1, "up_mrf_stage": 1}:
+                    raise RuntimeError(f"samples: launches a call {launches}")
+                if not math.isfinite(rec["mel_l1"]):
+                    raise RuntimeError(f"samples: mel-L1 {rec['mel_l1']}")
+                wavs.append(rec["wav"])
+            if np.array_equal(wavs[0], wavs[1]):
+                raise RuntimeError(f"samples: sids {MS_SIDS} give the same audio for {clip}")
+        log(f"  samples of G_{MS_STEPS}.pth: {len(clips)} clips x sids {MS_SIDS}, one launch "
+            f"of each stage kernel a call, the speakers' audio different  [{card}]")
+        log(f"  phase 15 wall {time.perf_counter() - t_phase:.1f} s")
+        return {"mel": mel, "kl": kl, "train_wall_s": wall}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2413,6 +2504,11 @@ def main() -> int:
     # 14. the headline entry point on the fidelity recipe, held to the fixture
     torch.cuda.empty_cache()
     headline_phase(card, hps)
+
+    log(f"-- phase 15 starts at {time.time() - t_start:.0f} s")
+    # 15. the training-evidence tools: corpus, 200 conditioned steps, report, samples
+    torch.cuda.empty_cache()
+    convergence_tools_phase(card, dev)
 
     kernels = [
         {"name": "mrf_stage", "route": "cuda",

@@ -123,24 +123,31 @@ def timed(vocoder: Vocoder, mel, lens, iters: int, gen: torch.Generator):
     return (time.perf_counter() - t0) / iters, calls, launches, out
 
 
-def fidelity_vs_reference(hps, state, vocoder: Vocoder, fixture: str):
-    """``(mel_l1_vs_reference, mel_l1_serving)`` against the fixture's
-    reference waveform, or ``(None, None)`` where there is no fixture."""
-    if not os.path.exists(fixture):
-        log(f"fidelity: no golden fixture at {fixture}, skipping")
-        return None, None
+def golden_case(hps, fixture: str, device: torch.device):
+    """The golden fixture on ``device``: ``(mel, lens, eps, noise_scale,
+    mel_l1)``, where ``mel_l1(wav)`` is the mean |mel(wav) - mel(wav_ref)|
+    of a ``(1, L, 1)`` waveform against the reference's."""
     gz = np.load(fixture)
-    device = vocoder.device
     mel = torch.from_numpy(gz["mel"]).to(device)
     lens = torch.full((mel.shape[0],), mel.shape[1], dtype=torch.int64, device=device)
     eps = torch.from_numpy(gz["eps"]).to(device)
-    noise_scale = float(gz["noise_scale"])
     mel_cfg = MelConfig.from_hparams(hps)
     ref = mel_spectrogram(torch.from_numpy(gz["wav_ref"])[None].float().to(device), mel_cfg)
 
     def mel_l1(wav):
         return (mel_spectrogram(wav[..., 0].float(), mel_cfg) - ref).abs().mean().item()
 
+    return mel, lens, eps, float(gz["noise_scale"]), mel_l1
+
+
+def fidelity_vs_reference(hps, state, vocoder: Vocoder, fixture: str):
+    """``(mel_l1_vs_reference, mel_l1_serving)`` against the fixture's
+    reference waveform, or ``(None, None)`` where there is no fixture."""
+    if not os.path.exists(fixture):
+        log(f"fidelity: no golden fixture at {fixture}, skipping")
+        return None, None
+    device = vocoder.device
+    mel, lens, eps, noise_scale, mel_l1 = golden_case(hps, fixture, device)
     # the plain f32 module graph; Vocoder's constructor turns TF32 off
     f32 = Vocoder(hps, state, dtype=torch.float32, use_kernels=False, use_wn_kernels=False,
                   device=device)
