@@ -72,14 +72,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
    384:96, 8 rows, on iitp_base_ms (109 speakers): eight streams of 800-1600
    frames with mixed seeds, sids and noise scales; one stream bit-identical
    alone and among other co-tenants in another row; each stream against its
-   B = 1 ``stream_mel_to_wav`` (mel-L1 <= 1e-3). Every one of these paths runs
-   with the counts reset just before it: one launch of each stage kernel a
-   window or server step, no ``*_fma``. Voice conversion on iitp_base_ms in
-   f32, B = 2 x 400 frames: the same speaker recovers z within 1e-4 of its
-   largest entry; another gives finite waveforms in [-1, 1] that differ.
-   Profiles of one B = 1 window and one 8-row server step at 384:96. Timing: ``tools/bench_streaming.py`` in a fresh process (first window cold
-   against after ``warmup``, the B = 1 operating points, the N = 1, 8, 32
-   stream sweep), each table with the card's name and power limit.
+   B = 1 ``stream_mel_to_wav`` (mel-L1 <= 1e-3). Every window and server
+   step is a replay of its program's CUDA graph (``programs.py``), made by
+   ``warmup`` before the counted paths; each of these paths runs with the
+   counts reset just before it: one launch of each stage kernel a window or
+   server step (a replay adds its capture's tally), no ``*_fma``. The
+   programs: (a) replays bit-equal to the eager launches on the same buffers
+   (``tools/bench_streaming.py:eager_window``, ``eager_decode``) for windows
+   of 1024 and 384 frames at hifi 2 and on the hifi-0 + WN route, and for
+   an 8-row server step on iitp_base_ms with mixed sids and noise scales;
+   (b) a profiler trace of one replay of a 384-frame window (hifi 2; the WN
+   route, with 12 ``wn_stack`` kernels) and of the server's step: one
+   ``up_mrf_stage`` and one ``mrf_stage`` kernel each, the card's busy
+   share, the top kernels; (c) graph against eager ms, ``ROUNDS``
+   interleaved rounds (``time_legs``), windows at 1024:128, 384:96, 256:64
+   and server decodes of 1, 8, 32 rows; (d) ``warmup()`` of every default
+   bucket (64-4096 frames) on a fresh ``Vocoder``: capture ms a shape, the
+   reserved MB before and after, the graph pool's MB. Voice conversion on
+   iitp_base_ms in f32, B = 2 x 400 frames: the same speaker recovers z
+   within 1e-4 of its largest entry; another gives finite waveforms in
+   [-1, 1] that differ. Timing: ``tools/bench_streaming.py`` in a fresh
+   process (first window cold -- the program's making included -- against
+   after ``warmup``, the B = 1 operating points, the N = 1, 8, 32 stream
+   sweep, each graph time beside its eager one), each table with the card's
+   name and power limit.
 10. the train step (``training.make_train_step``) at full width: iitp_base,
    B = 16 x 1000 frames, segment 8192 samples, seeded G and D. The f32 and
    the bf16 step from the same weights and the same explicit noise (each of
@@ -447,6 +463,177 @@ LIVE_FRAMES = 6000       # ~70 s of audio
 LIVE_POINT = (1024, 128)
 SERVER_POINT = (384, 96)
 SERVER_ROWS = 8
+WINDOW_POINTS = ((1024, 128), (384, 96), (256, 64))  # tools/bench_streaming.py's
+SWEEP_ROWS = (1, 8, 32)
+# the kernels of a replay by the name in the profiler's trace (a lookbehind
+# keeps up_mrf_stage_kernel out of mrf_stage_kernel's count)
+TRACE_KERNELS = {"up_mrf_stage": r"up_mrf_stage_kernel", "mrf_stage": r"(?<!\w)mrf_stage_kernel",
+                 "wn_stack": r"wn_stack_mma_kernel"}
+
+
+def replay_trace(label: str, fn, want: dict, card: str, rows: int = 8) -> float:
+    """One call of ``fn`` (a program's replay and its copies) under
+    torch.profiler: each kernel of ``TRACE_KERNELS`` launched as often as
+    ``want`` says (0 where it is not named), the top kernels, and the card's
+    busy share: its busy ms in the trace over the call's unprofiled wall
+    (the median of 5 calls; the profiler slows the host). Returns the share."""
+    import re
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    averages = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in averages) / 1e3
+    seen = {k: sum(e.count for e in averages if re.search(pat, e.key))
+            for k, pat in TRACE_KERNELS.items()}
+    want = {k: want.get(k, 0) for k in TRACE_KERNELS}
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    share = busy_ms / statistics.median(walls)
+    log(f"replay trace, {label}: card busy {busy_ms:.3f} ms in "
+        f"{sum(e.count for e in averages)} kernels; the call's wall {statistics.median(walls):.3f} "
+        f"ms unprofiled (median of 5), {wall_ms:.3f} ms profiled; busy share "
+        f"{100 * share:.1f}%; stage and WN kernels {seen} (expected {want})  [{card}]")
+    for e in sorted(averages, key=lambda e: -e.self_device_time_total)[:rows]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:4d}x  {e.key[:100]}")
+    if seen != want:
+        raise RuntimeError(f"replay trace, {label}: kernels {seen}, expected {want}")
+    return share
+
+
+def graph_pool_mb(vocoder) -> float | None:
+    """MB the CUDA caching allocator holds in ``vocoder``'s graph pool (its
+    segments in ``torch.cuda.memory_snapshot()``); None where the snapshot
+    does not name a segment's pool."""
+    import torch
+
+    segments = torch.cuda.memory_snapshot()
+    if not segments or "segment_pool_id" not in segments[0]:
+        return None
+    pool = tuple(vocoder._graph_pool)
+    return sum(g["total_size"] for g in segments
+               if tuple(g["segment_pool_id"]) == pool) / 2 ** 20
+
+
+def live_programs(vocoder_hifi2, vocoder_wn0, voc_ms, card: str, rng) -> None:
+    """Phase 9's serving programs: (a) each window and server step replayed
+    bit-equal to its eager launches on the same buffers; (b) a profiler trace
+    of one replay; (c) graph against eager ms, interleaved; (d) capture ms a
+    shape and the graph pool's MB after ``warmup`` of every bucket."""
+    import torch
+
+    from smart_vocoder_torch.inference import Vocoder
+    from smart_vocoder_torch.serving import StreamServer
+    from smart_vocoder_torch.tools.bench_streaming import eager_decode, eager_window, ready_server
+
+    t_part = time.perf_counter()
+    n_mels = vocoder_hifi2.hps.data.n_mel_channels
+    stages = {"mrf_stage": 1, "up_mrf_stage": 1}
+    wn = {"wn_stack": 12, **stages}
+
+    # (a) graph against eager, bit for bit
+    for label, voc in (("hifi 2", vocoder_hifi2), ("hifi 0 + WN kernels", vocoder_wn0)):
+        for chunk, overlap in (LIVE_POINT, SERVER_POINT):
+            for lo, n in ((0, chunk), (5 * chunk + 7, chunk - overlap - 11)):
+                mel = (rng.normal(0, 1, (n, n_mels)) * 2.0 - 4.0).astype(np.float32)
+                graph = voc._synth_window(mel, lo, chunk, 0.667, None, SEED + lo)
+                eager = eager_window(voc, mel, lo, chunk, 0.667, None, SEED + lo)
+                if not (np.isfinite(graph).all() and np.array_equal(graph, eager)):
+                    raise RuntimeError(f"window program {label} {chunk}:{overlap} (lo {lo}, "
+                                       f"{n} frames): replay differs from the eager launches, "
+                                       f"max |diff| {np.abs(graph - eager).max():.3e}")
+        log(f"live programs (a): {label} windows at {LIVE_POINT[0]} and {SERVER_POINT[0]} "
+            f"frames, a full and a short one each: replay = eager launches bit for bit")
+    chunk, overlap = SERVER_POINT
+    server = StreamServer(voc_ms, max_streams=SERVER_ROWS, chunk=chunk, overlap=overlap)
+    for i in range(SERVER_ROWS - 2):  # two idle rows
+        h = server.open(seed=SEED + 50 + i, sid=int(rng.integers(0, voc_ms.hps.data.n_speakers)),
+                        noise_scale=(0.667, 1.0, 0.3)[i % 3])
+        server.feed(h, (rng.normal(0, 1, (chunk + 40 * i, n_mels)) * 2.0 - 4.0)
+                    .astype(np.float32))
+    server.step()
+    ready = [(h, s) for h, s in server._streams.items()
+             if s.ready(server.step_frames, overlap)]
+    if len(ready) < 2:
+        raise RuntimeError(f"server program: {len(ready)} windows ready")
+    for (_, _, g), (_, _, e) in zip(server._decode_batch(ready), eager_decode(server, ready)):
+        if not np.array_equal(g, e):
+            raise RuntimeError("server program: replay differs from the eager launches")
+    log(f"live programs (a): iitp_base_ms {SERVER_ROWS}-row server at {chunk}:{overlap}, "
+        f"{len(ready)} windows past frame 0 (mixed sids and noise scales, idle rows): "
+        "replay = eager launches bit for bit")
+
+    # (b) one replay under the profiler
+    mel = (rng.normal(0, 1, (chunk, n_mels)) * 2.0 - 4.0).astype(np.float32)
+    busy = {
+        "window 384 hifi 2": replay_trace(
+            f"B = 1 window {chunk}:{overlap} (iitp_base hifi 2)",
+            lambda: vocoder_hifi2._synth_window(mel, 0, chunk, 0.667, None, SEED), stages, card),
+        "window 384 hifi 0 + WN": replay_trace(
+            f"B = 1 window {chunk}:{overlap} (iitp_base hifi 0 + WN kernels)",
+            lambda: vocoder_wn0._synth_window(mel, 0, chunk, 0.667, None, SEED), wn, card),
+        "server 8 rows": replay_trace(
+            f"StreamServer {SERVER_ROWS}-row decode {chunk}:{overlap} (iitp_base_ms hifi 2)",
+            lambda: server._decode_batch(ready), stages, card)}
+    del server
+
+    # (c) graph against eager, interleaved: B = 1 windows and server decodes
+    legs = {}
+    for chunk, overlap in WINDOW_POINTS:
+        mel = (rng.normal(0, 1, (chunk, n_mels)) * 2.0 - 4.0).astype(np.float32)
+        legs[f"window {chunk}:{overlap} graph"] = (
+            lambda m=mel, c=chunk: vocoder_hifi2._synth_window(m, 0, c, 0.667, None, SEED))
+        legs[f"window {chunk}:{overlap} eager"] = (
+            lambda m=mel, c=chunk: eager_window(vocoder_hifi2, m, 0, c, 0.667, None, SEED))
+    chunk, overlap = SERVER_POINT
+    for n in SWEEP_ROWS:
+        server, ready = ready_server(vocoder_hifi2, n, chunk, overlap, rng)
+        legs[f"server {n} rows graph"] = lambda s=server, r=ready: s._decode_batch(r)
+        legs[f"server {n} rows eager"] = lambda s=server, r=ready: eager_decode(s, r)
+    times = time_legs(legs, iters=3)
+    log(f"live programs (c): ms a call, graph against eager, median of {ROUNDS} interleaved "
+        f"rounds of 3 (CUDA events; each call ends in its copy to the host), iitp_base hifi 2 "
+        f"bf16  [{card}]")
+    for name in list(legs)[::2]:
+        g, e = times[name], times[name.replace("graph", "eager")]
+        log(f"  {name[:-6]:>22}: graph {span(g)}, eager {span(e)}, eager / graph "
+            f"{e[0] / g[0]:.2f}")
+
+    # (d) capture ms a shape; the graph pool after warmup of every bucket
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    pooled = Vocoder(vocoder_hifi2.hps, vocoder_hifi2.params, dtype=torch.bfloat16, hifi=2,
+                     device=vocoder_hifi2.device)
+    t0 = time.perf_counter()
+    pooled.warmup()
+    wall = time.perf_counter() - t0
+    after = torch.cuda.memory_reserved()
+    pool_mb = graph_pool_mb(pooled)
+    log(f"live programs (d): warmup() of the {len(pooled.buckets)} buckets "
+        f"{pooled.buckets} at hifi 2 in {wall:.2f} s; reserved {before / 2 ** 20:.1f} -> "
+        f"{after / 2 ** 20:.1f} MB, the graph pool "
+        f"{'not measured' if pool_mb is None else f'{pool_mb:.1f} MB'}  [{card}]")
+    for voc, label in ((pooled, "hifi 2, every bucket"), (vocoder_hifi2, "hifi 2"),
+                       (vocoder_wn0, "hifi 0 + WN"), (voc_ms, "iitp_base_ms hifi 2")):
+        log(f"  capture ms, {label}: " + ", ".join(f"{k} {p.capture_ms:.1f}"
+                                                   for k, p in voc._programs.items()))
+    pooled.close()
+    log("  replay busy shares: " + ", ".join(f"{k} {100 * v:.1f}%" for k, v in busy.items()))
+    log(f"live programs (a)-(d): {time.perf_counter() - t_part:.1f} s")
 
 
 def live_path(label: str, run, per_call: dict, calls) -> object:
@@ -515,6 +702,10 @@ def live_serving(vocoder_hifi2, vocoder_f32, vocoder_wn0, mel_l1, card: str, rng
     mel = (rng.normal(0, 1, (LIVE_FRAMES, n_mels)) * 2.0 - 4.0).astype(np.float32)
     n_win = windows(LIVE_FRAMES, chunk, overlap)
     kw = dict(chunk=chunk, overlap=overlap, noise_scale=0.667, seed=SEED)
+    # the window programs (capture counted as no launch; the eager call before
+    # it as one) made before the paths whose launches are counted
+    vocoder_hifi2.warmup([chunk])
+    vocoder_wn0.warmup([chunk])
     chunked = live_path("chunked hifi 2", lambda: vocoder_hifi2.mel_to_wav_chunked(mel, **kw),
                         stages, lambda: n_win)
     eps = positional_eps([SEED], [0], LIVE_FRAMES, inter).numpy()
@@ -567,6 +758,7 @@ def live_serving(vocoder_hifi2, vocoder_f32, vocoder_wn0, mel_l1, card: str, rng
         return [m[a:b] for a, b in zip(cut, cut[1:])]
 
     feeds = [ragged(m) for m in mels]
+    StreamServer(voc_ms, max_streams=SERVER_ROWS, chunk=chunk, overlap=overlap).warmup()
 
     def serve(streams):
         """[(spec, pieces)] through one 8-row server -> (audio per stream, steps)."""
@@ -616,16 +808,8 @@ def live_serving(vocoder_hifi2, vocoder_f32, vocoder_wn0, mel_l1, card: str, rng
     if not worst <= 1e-3:
         raise RuntimeError(f"StreamServer: batched vs B = 1 mel-L1 {worst} above 1e-3")
 
-    # where a window's time goes: one B = 1 window and one 8-row server step
-    server = StreamServer(voc_ms, max_streams=SERVER_ROWS, chunk=chunk, overlap=overlap)
-    for i, m in enumerate(mels):
-        server.feed(server.open(seed=i, sid=i), m)
-    server.step()
-    profile_step(f"B = 1 window {chunk}:{overlap} (iitp_base hifi 2)", lambda:
-                 vocoder_hifi2._synth_window(mel[:chunk], 0, chunk, 0.667, None, SEED), card, 12)
-    profile_step(f"StreamServer {SERVER_ROWS}-row step {chunk}:{overlap} (iitp_base_ms hifi 2)",
-                 server.step, card, 12)
-    del server
+    # the programs: graph against eager, a replay's trace, times, captures
+    live_programs(vocoder_hifi2, vocoder_wn0, voc_ms, card, rng)
 
     # voice conversion, f32, B = 2 x 400 frames of the chunked decode's spectrogram
     net = build_synthesizer(hps_ms, device=dev)

@@ -15,7 +15,10 @@ overlapping windows of one fixed ``chunk`` shape (``_synth_window``) and keep
 each window's interior. The prior noise of a window comes from
 ``ops.noise.positional_eps``, keyed by the absolute frame, so overlapping
 windows see the same latents and a stream equals the chunked decode bit for
-bit. ``serving.StreamServer`` batches the windows of many streams.
+bit. ``serving.StreamServer`` batches the windows of many streams. Each
+window shape, like JAX's jitted ``_infer``, is one program
+(``programs.ServingProgram``): a CUDA graph of ``_decode_windows`` captured at
+``warmup`` or at the shape's first window and replayed for every window.
 
 Several cards (``smart_vocoder_tpu/inference.py:110-142``, ``Vocoder(mesh=...)``
 over the ``'data'`` axis): ``Vocoder(devices=[...])`` holds one replica of the
@@ -30,6 +33,8 @@ from __future__ import annotations
 import bisect
 import contextlib
 import copy
+import functools
+import threading
 from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Iterable, Iterator, Mapping, Optional, Sequence
 
@@ -50,6 +55,7 @@ from smart_vocoder_torch.ops import (
     spectrogram,
 )
 from smart_vocoder_torch.parallel.devices import check_devices, split_rows
+from smart_vocoder_torch.programs import ServingProgram
 from smart_vocoder_torch.utils.device import resolve_device
 from smart_vocoder_torch.utils.torch_compat import load_reference_generator
 
@@ -144,6 +150,11 @@ class Vocoder:
         self.wn_packed = (pack_prior_flow(self.params, **self.wn_sizes, dtype=dtype,
                                           device=self.device)
                           if self.use_wn_kernels else None)
+        # the serving programs (windows, servers) by key, their CUDA graphs in
+        # one memory pool, made at the first program on a card
+        self._programs: dict[tuple, ServingProgram] = {}
+        self._program_lock = threading.RLock()
+        self._graph_pool = None
         self._workers = {}
         if len(self.devices) > 1:
             if (self.use_kernels or self.use_wn_kernels) and any(
@@ -163,7 +174,11 @@ class Vocoder:
                              for d in self._replicas}
 
     def close(self) -> None:
-        """Stop the shards' worker threads (a one-device ``Vocoder`` has none)."""
+        """Drop the serving programs (their graphs and pool) and stop the
+        shards' worker threads (a one-device ``Vocoder`` has none)."""
+        with self._program_lock:
+            self._programs.clear()
+            self._graph_pool = None
         for worker in self._workers.values():
             worker.shutdown()
 
@@ -292,33 +307,68 @@ class Vocoder:
     # -- windows: chunked and streaming synthesis ----------------------------
     def warmup(self, chunks: Optional[Sequence[int]] = None,
                sid: Optional[np.ndarray] = None) -> None:
-        """Run the window program once for each chunk size (default: every
-        bucket), so that a live session's first window pays none of the
-        one-off costs: the kernel library's first load, cuDNN's plan choice
-        for the shape, the allocator's growth. Pass ``sid`` when serving a
-        speaker-conditioned model (the conditioned prior runs other
-        operations)."""
+        """Make the window program of each chunk size (default: every bucket)
+        at noise scale 0.667, as JAX's ``warmup`` compiles it: one eager call
+        (the kernel library's first load, cuDNN's plan choice for the shape,
+        the allocator's growth), then the capture of its CUDA graph, so that
+        a live session's first window is a replay. Pass ``sid`` when serving a
+        speaker-conditioned model (the conditioned prior is another program)."""
         n_mels = int(self.hps.data.n_mel_channels)
         for c in chunks or self.buckets:
-            self._synth_window(np.zeros((c, n_mels), np.float32), 0, c, 0.667, sid, 0)
+            self._window_call(np.zeros((c, n_mels), np.float32), 0, c, 0.667, sid, 0)
 
-    def _synth_window(self, mel_win: np.ndarray, lo: int, chunk: int,
-                      noise_scale: float, sid, seed: int) -> np.ndarray:
-        """Decode one window (absolute frames ``[lo, lo + len)``) padded to
-        ``chunk`` frames, so one shape serves every window. Its prior noise is
-        ``positional_eps(seed, lo)`` over all ``chunk`` frames, made on the
-        device; the padded frames' noise is masked out of every valid sample,
-        as in JAX's in-graph route (``_positional_eps_graph``)."""
+    def _program(self, key: tuple, fn, inputs: Mapping[str, np.ndarray]) -> ServingProgram:
+        """The serving program of ``key``; made at its first use from ``fn``
+        with ``inputs`` as its static buffers' first values."""
+        with self._program_lock:
+            program = self._programs.get(key)
+            if program is None:
+                if self.device.type == "cuda" and self._graph_pool is None:
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+                static = {k: torch.from_numpy(np.asarray(v)).to(self.device)
+                          for k, v in inputs.items()}
+                program = ServingProgram(key, fn, static, self._graph_pool, self._program_lock)
+                self._programs[key] = program
+            return program
+
+    def _decode_windows(self, mel, lengths, seeds, starts, noise_scale, sid=None):
+        """The function of every serving program: windows ``mel (B, chunk,
+        n_mels)`` of ``lengths`` frames through ``_infer``, row r's prior noise
+        ``positional_eps(seeds[r], starts[r])``, drawn on the device."""
+        eps = positional_eps(seeds, starts, mel.shape[1], int(self.hps.model.inter_channels))
+        return self._infer(mel, lengths, eps, noise_scale, sid)
+
+    def _window_call(self, mel_win: np.ndarray, lo: int, chunk: int, noise_scale: float,
+                     sid, seed: int) -> tuple[ServingProgram, dict, int]:
+        """The program of a window's ``(chunk, noise_scale, conditioned)``, its
+        inputs (the mel padded to ``chunk``) and the window's length; the noise
+        scale is the program's constant, as JAX's static ``noise_scale``."""
         mel_win = np.asarray(mel_win, np.float32)
         n = mel_win.shape[0]
         if chunk > n:
             mel_win = np.pad(mel_win, ((0, chunk - n), (0, 0)))
-        dev = self.device
-        eps = positional_eps([seed], [lo], chunk, int(self.hps.model.inter_channels), dev)
-        o = self._infer(torch.from_numpy(mel_win)[None].to(dev),
-                        torch.full((1,), n, dtype=torch.int64, device=dev), eps, noise_scale,
-                        None if sid is None else torch.as_tensor(np.asarray(sid), device=dev))
-        return o[0, : n * self.hps.data.hop_length, 0].float().cpu().numpy()
+        conditioned = self.net.emb_g is not None and sid is not None
+        inputs = {"mel": mel_win[None], "lengths": np.array([n], np.int64),
+                  "seeds": np.array([seed], np.int64), "starts": np.array([lo], np.int64)}
+        if conditioned:
+            inputs["sid"] = np.asarray(sid, np.int64).reshape(1)
+        noise_scale = float(noise_scale)
+        program = self._program(("window", chunk, noise_scale, conditioned),
+                                functools.partial(self._decode_windows, noise_scale=noise_scale),
+                                inputs)
+        return program, inputs, n
+
+    def _synth_window(self, mel_win: np.ndarray, lo: int, chunk: int,
+                      noise_scale: float, sid, seed: int) -> np.ndarray:
+        """Decode one window (absolute frames ``[lo, lo + len)``) padded to
+        ``chunk`` frames, so one shape serves every window, through its
+        program. Its prior noise is ``positional_eps(seed, lo)`` over all
+        ``chunk`` frames, drawn inside the program; the padded frames' noise
+        is masked out of every valid sample, as in JAX's in-graph route
+        (``_positional_eps_graph``)."""
+        program, inputs, n = self._window_call(mel_win, lo, chunk, noise_scale, sid, seed)
+        o = program.run(**inputs)
+        return o[0, : n * self.hps.data.hop_length, 0].float().numpy()
 
     @staticmethod
     def _check_window(chunk: int, overlap: int) -> int:

@@ -8,11 +8,13 @@ named by a hash of the sources, headers and flags, so an edited source
 rebuilds and an unchanged one loads at once.
 A failed build or load raises; nothing is downloaded. The first load and the
 launch counts are safe under threads: a multi-card ``Vocoder`` launches from
-one worker thread a device.
+one worker thread a device. Launches made while a CUDA graph is captured
+(``programs.ServingProgram``) are counted once for each replay of the graph.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -82,11 +84,38 @@ LAUNCHES: dict[str, int] = {"mrf_stage": 0, "up_mrf_stage": 0, "mrf_stage_unpack
                             "wn_stack_fma": 0, "mrf_branch_bwd_fma": 0}
 _COUNT_LOCK = threading.Lock()  # a += from two threads can lose one of them
 _LOAD_LOCK = threading.Lock()   # one build and one load, whatever thread asks first
+_RECORDING = threading.local()  # .tally: the launches of a capture in this thread
 
 
 def count_launches(name: str, n: int = 1) -> None:
+    """Count ``n`` launches of ``name``; into the tally of :func:`recording_launches`
+    instead while a capture in this thread records them (a captured kernel
+    runs only when its graph is replayed)."""
+    tally = getattr(_RECORDING, "tally", None)
+    if tally is not None:
+        tally[name] = tally.get(name, 0) + n
+        return
     with _COUNT_LOCK:
         LAUNCHES[name] += n
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Within the block, this thread's launches go to the dict it yields (the
+    tally of a captured program), not to ``LAUNCHES``."""
+    _RECORDING.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _RECORDING.tally = None
+
+
+def count_tally(tally: dict) -> None:
+    """Add a captured program's tally to ``LAUNCHES``: one replay runs each
+    captured kernel once."""
+    with _COUNT_LOCK:
+        for name, n in tally.items():
+            LAUNCHES[name] += n
 
 
 def reset_launch_counts() -> None:

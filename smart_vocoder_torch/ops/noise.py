@@ -104,8 +104,14 @@ def prior_sample(m_p: torch.Tensor, logs_p: torch.Tensor, eps: torch.Tensor,
     scalar against a bf16 array (``smart_vocoder_tpu/models/synthesizer.py:
     328``), so a float and a tensor of the same values give the same bits.
     Both go through float32 first, so a float rounds once to float32 then to
-    ``m_p.dtype``, as a float32 tensor of it does."""
-    scale = torch.as_tensor(noise_scale, dtype=torch.float32, device=m_p.device).to(m_p.dtype)
+    ``m_p.dtype``, as a float32 tensor of it does. A float becomes a tensor by
+    a fill on ``m_p``'s device, not a copy from the host, so a CUDA graph can
+    hold it (``programs.ServingProgram``)."""
+    if isinstance(noise_scale, (int, float)):
+        scale = torch.full((), float(noise_scale), dtype=torch.float32, device=m_p.device)
+    else:
+        scale = torch.as_tensor(noise_scale, dtype=torch.float32, device=m_p.device)
+    scale = scale.to(m_p.dtype)
     if scale.ndim:  # one scale per row
         scale = scale.reshape((-1,) + (1,) * (m_p.ndim - 1))
     return m_p + eps.to(m_p.dtype) * torch.exp(logs_p) * scale

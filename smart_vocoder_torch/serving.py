@@ -19,6 +19,12 @@ Scheduling: a stream's window is ready once ``step + overlap`` frames past its
 cursor are buffered (``step = chunk - 2 * overlap``), or at once after
 ``close``. Each ``step()`` decodes up to ``max_streams`` ready windows, the
 streams furthest behind first; idle rows have length 0 (fully masked).
+
+The decode is one program, as JAX's one ``jax.jit(batched_windows)``: a CUDA
+graph of ``Vocoder._decode_windows`` at ``(max_streams, chunk)``, held by the
+vocoder (``programs.ServingProgram``), captured at ``warmup`` or at the first
+step and replayed at every step, each row's seed, first frame, noise scale,
+length and speaker in its static buffers.
 """
 
 from __future__ import annotations
@@ -28,10 +34,9 @@ from dataclasses import dataclass
 from typing import Dict, Iterable, Iterator, Optional
 
 import numpy as np
-import torch
 
 from smart_vocoder_torch.inference import Vocoder
-from smart_vocoder_torch.ops import positional_eps
+from smart_vocoder_torch.programs import ServingProgram
 
 
 @dataclass
@@ -83,7 +88,6 @@ class StreamServer:
         self.step_frames = vocoder._check_window(self.chunk, self.overlap)
         self.hop = int(vocoder.hps.data.hop_length)
         self.n_mels = int(vocoder.hps.data.n_mel_channels)
-        self.inter = int(vocoder.hps.model.inter_channels)
         self._streams: Dict[int, _Stream] = {}
         self._ids = itertools.count()
         self._with_sid = vocoder.net.emb_g is not None
@@ -119,8 +123,9 @@ class StreamServer:
         return sum(s.ready(self.step_frames, self.overlap) for s in self._streams.values())
 
     def warmup(self) -> None:
-        """Run the batched window program once (its one shape) on idle rows."""
-        self._decode_batch([])
+        """Make the batched window program (its one shape) on idle rows: one
+        eager call, then the capture of its CUDA graph."""
+        self._program(self._batch([])[0])
 
     # -- the scheduler ---------------------------------------------------------
     def step(self) -> Dict[int, np.ndarray]:
@@ -147,11 +152,23 @@ class StreamServer:
                 del self._streams[h]
         return out
 
+    def _program(self, inputs) -> ServingProgram:
+        """This shape's program, made at its first use on ``inputs``."""
+        return self.voc._program(("server", self.max_streams, self.chunk, self._with_sid),
+                                 self.voc._decode_windows, inputs)
+
     def _decode_batch(self, ready):
-        """Pad the ready windows into the fixed ``(max_streams, chunk)`` shape
-        and decode them; idle rows have length 0. Each row's noise is
-        ``positional_eps`` from its own seed and first frame, and its noise
-        scale and speaker ride the row."""
+        """Decode the ready windows through the program: ``[(lo, hi, wav)]``
+        a window, its absolute frames and its waveform."""
+        inputs, spans = self._batch(ready)
+        o = self._program(inputs).run(**inputs).float().numpy()
+        return [(lo, hi, o[r, : (hi - lo) * self.hop, 0]) for r, (lo, hi) in enumerate(spans)]
+
+    def _batch(self, ready):
+        """The program's inputs for the ready windows padded into the fixed
+        ``(max_streams, chunk)`` shape, and each window's span; idle rows have
+        length 0. Each row's noise is ``positional_eps`` from its own seed and
+        first frame, and its noise scale and speaker ride the row."""
         n = self.max_streams
         mel = np.zeros((n, self.chunk, self.n_mels), np.float32)
         lengths = np.zeros((n,), np.int64)
@@ -169,14 +186,11 @@ class StreamServer:
             if s.sid is not None:
                 sids[r] = int(s.sid)
             spans.append((lo, hi))
-        dev = self.voc.device
-        eps = positional_eps(torch.from_numpy(seeds).to(dev), torch.from_numpy(starts).to(dev),
-                             self.chunk, self.inter)
-        o = self.voc._infer(torch.from_numpy(mel).to(dev), torch.from_numpy(lengths).to(dev),
-                            eps, torch.from_numpy(noise_scales).to(dev),
-                            torch.from_numpy(sids).to(dev) if self._with_sid else None)
-        o = o.float().cpu().numpy()
-        return [(lo, hi, o[r, : (hi - lo) * self.hop, 0]) for r, (lo, hi) in enumerate(spans)]
+        inputs = {"mel": mel, "lengths": lengths, "seeds": seeds, "starts": starts,
+                  "noise_scale": noise_scales}
+        if self._with_sid:
+            inputs["sid"] = sids
+        return inputs, spans
 
     # -- convenience -----------------------------------------------------------
     def run(self, feeds: Dict[int, Iterable[np.ndarray]]) -> Iterator[tuple[int, np.ndarray]]:

@@ -798,21 +798,124 @@ def test_train_cli_under_torchrun_on_every_card(tmp_path):
     assert all(np.isfinite(row[:5]).all() for row in losses)
 
 
-def _iitp_base_vocoders(**kw):
-    """iitp_base at full width, seeded weights, bf16 hifi 2: a one-device
-    ``Vocoder`` on ``cuda:0`` and one with ``kw`` (its ``devices``)."""
+def _iitp_base_state():
     import os
 
     from smart_vocoder_torch.config import load_config
-    from smart_vocoder_torch.inference import Vocoder
     from smart_vocoder_torch.models import build_synthesizer
     from smart_vocoder_torch.utils.init import init_synthesizer
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     hps = load_config(os.path.join(root, "configs", "iitp_base.json"))
-    state = init_synthesizer(build_synthesizer(hps, weight_norm=True), 1234).state_dict()
+    return hps, init_synthesizer(build_synthesizer(hps, weight_norm=True), 1234).state_dict()
+
+
+def _iitp_base_vocoders(**kw):
+    """iitp_base at full width, seeded weights, bf16 hifi 2: a one-device
+    ``Vocoder`` on ``cuda:0`` and one with ``kw`` (its ``devices``)."""
+    from smart_vocoder_torch.inference import Vocoder
+
+    hps, state = _iitp_base_state()
     opts = dict(dtype=torch.bfloat16, hifi=2, buckets=(128,))
     return hps, Vocoder(hps, state, device="cuda:0", **opts), Vocoder(hps, state, **opts, **kw)
+
+
+STAGES = {"mrf_stage": 1, "up_mrf_stage": 1}  # the kernel launches of one window or step
+
+
+def _counted():
+    from smart_vocoder_torch.kernels import LAUNCHES
+
+    return {k: v for k, v in LAUNCHES.items() if v}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("search", [False, True])
+def test_window_program_replays_the_eager_window(search, monkeypatch):
+    """A window program of iitp_base bf16 hifi 2 captured at 384 frames: its
+    replay bit-equal to the eager window on the same buffers and to
+    ``_infer`` called on its own, with cuDNN's search off and on; two
+    windows in a row, each equal to its eager decode; a result held across a
+    later replay unchanged; each replay adds the capture's tally (one launch
+    of each stage kernel) to ``LAUNCHES``."""
+    from smart_vocoder_torch.inference import Vocoder
+    from smart_vocoder_torch.kernels import reset_launch_counts
+    from smart_vocoder_torch.ops import positional_eps
+
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", search)
+    hps, state = _iitp_base_state()
+    voc = Vocoder(hps, state, dtype=torch.bfloat16, hifi=2, buckets=(384,), device="cuda")
+    rng = np.random.default_rng(1)
+    a, b = ((rng.normal(0, 1, (n, 80)) * 2 - 4).astype(np.float32) for n in (384, 300))
+    program, inputs, _ = voc._window_call(a, 96, 384, 0.667, None, 5)
+    assert program.graph is not None and program.tally == STAGES
+    reset_launch_counts()
+    first = program.run(**inputs)
+    held = first.clone()
+    second = voc._synth_window(b, 1000, 384, 0.667, None, 7)
+    assert _counted() == {k: 2 * v for k, v in STAGES.items()}
+    assert torch.equal(first, held)
+    assert torch.equal(first, program.eager(**inputs))
+    eps = positional_eps([5], [96], 384, hps.model.inter_channels, "cuda")
+    want = voc._infer(torch.from_numpy(a)[None].cuda(), torch.tensor([384], device="cuda"),
+                      eps, 0.667)
+    assert torch.equal(first, want.cpu())
+    again, inputs_b, n = voc._window_call(b, 1000, 384, 0.667, None, 7)
+    assert again is program
+    np.testing.assert_array_equal(
+        second, program.eager(**inputs_b)[0, : n * hps.data.hop_length, 0].float().numpy())
+    voc.close()
+
+
+@pytest.mark.cuda
+def test_server_program_replays_the_eager_step():
+    """An 8-row server's program at 384:96 on six streams with mixed seeds,
+    noise scales and first frames and two idle rows: the replay bit-equal to
+    the eager decode of the same buffers, one launch of each stage kernel."""
+    from smart_vocoder_torch.inference import Vocoder
+    from smart_vocoder_torch.kernels import reset_launch_counts
+    from smart_vocoder_torch.serving import StreamServer
+
+    hps, state = _iitp_base_state()
+    voc = Vocoder(hps, state, dtype=torch.bfloat16, hifi=2, device="cuda")
+    server = StreamServer(voc, max_streams=8, chunk=384, overlap=96)
+    rng = np.random.default_rng(2)
+    for i in range(6):
+        h = server.open(seed=40 + i, noise_scale=(0.667, 1.0, 0.3)[i % 3])
+        server.feed(h, (rng.normal(0, 1, (300 + 90 * i, 80)) * 2 - 4).astype(np.float32))
+    server.step()
+    ready = [(h, s) for h, s in server._streams.items() if s.ready(192, 96)]
+    inputs, _ = server._batch(ready)
+    program = server._program(inputs)
+    assert program.tally == STAGES and inputs["lengths"][-1] == 0
+    reset_launch_counts()
+    got = program.run(**inputs)
+    assert _counted() == STAGES
+    assert torch.equal(got, program.eager(**inputs))
+    voc.close()
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises(monkeypatch):
+    """A capture refused by the graph raises from ``_synth_window`` with the
+    program's key in its notes; no audio comes back and no program is kept."""
+    from smart_vocoder_torch.inference import Vocoder
+
+    hps, state = _iitp_base_state()
+    voc = Vocoder(hps, state, dtype=torch.bfloat16, hifi=2, buckets=(64,), device="cuda")
+
+    def refuse(self, *args, **kwargs):
+        raise RuntimeError("capture refused")
+
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_begin", refuse)
+    try:
+        with pytest.raises(RuntimeError, match="capture refused") as info:
+            voc._synth_window(np.zeros((64, 80), np.float32), 0, 64, 0.667, None, 0)
+    finally:  # the refused capture leaves its side stream current
+        torch.cuda.set_stream(torch.cuda.default_stream())
+    assert info.value.__notes__ == [
+        "serving program ('window', 64, 0.667, False): capture failed"]
+    assert not voc._programs
 
 
 def _mel_batch(b, seed=0):

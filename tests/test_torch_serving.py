@@ -210,9 +210,11 @@ def test_bench_streaming_tool_on_the_cpu(capsys):
     text = capsys.readouterr().out
     assert text.count("[cpu: host times, not a device measurement") == 3
     assert "first_audio_ms" in text and "aggregate_rtf" in text and "warm_ms" in text
+    assert "eager_ms" in text and "capture_ms" in text
     (point,) = out["points"]
     assert point["buffer_ms"] == pytest.approx(48 * 16 / 22050 * 1e3)
     assert np.isfinite(point["compute_ms"]) and np.isfinite(point["seam"])
+    assert all(np.isfinite(r["eager_ms"]) for r in out["points"] + out["streams"])
     assert [r["streams"] for r in out["streams"]] == [1, 2]
     assert out["streams"][0]["max_diff"] == 0.0
     assert [r["chunk"] for r in out["warmup"]] == [64]
