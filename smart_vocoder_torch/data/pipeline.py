@@ -9,7 +9,9 @@ as long as the loader, reads and transforms the items of ``prefetch + 1``
 batches ahead of the one being collated (numpy's FFT and the native reader
 run without the interpreter lock); a producer thread collates them in order
 into a bounded queue. For the card, the producer pins each batch's memory
-and the consumer copies it with ``non_blocking=True``.
+and the consumer copies it with ``non_blocking=True``. While a profiler runs,
+the consumer's wait for each batch is the span ``loader.wait`` (``empty``: the
+queue held no batch when it asked; ``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 from smart_vocoder_torch.data.dataset import AudioSpecDataset
 from smart_vocoder_torch.data.sampler import BucketSampler
 from smart_vocoder_torch.training.step import Batch
+from smart_vocoder_torch.utils.profiling import span
 
 
 def pad_to_bucket(items: Sequence[tuple], frames: int, hop: int, with_sid: bool) -> Batch:
@@ -143,8 +146,9 @@ class BucketedLoader:
         t = threading.Thread(target=producer, daemon=True)
         t.start()
         try:
-            while True:
-                item = q.get()
+            for _ in batches:  # the producer puts each batch, or None once it failed
+                with span("loader.wait", empty=q.empty()):
+                    item = q.get()
                 if item is None:
                     break
                 yield item.to(self.device, non_blocking=pin)

@@ -34,6 +34,7 @@ import bisect
 import contextlib
 import copy
 import functools
+import itertools
 import threading
 from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Iterable, Iterator, Mapping, Optional, Sequence
@@ -57,6 +58,7 @@ from smart_vocoder_torch.ops import (
 from smart_vocoder_torch.parallel.devices import check_devices, split_rows
 from smart_vocoder_torch.programs import ServingProgram
 from smart_vocoder_torch.utils.device import resolve_device
+from smart_vocoder_torch.utils.profiling import span
 from smart_vocoder_torch.utils.torch_compat import load_reference_generator
 
 
@@ -155,6 +157,7 @@ class Vocoder:
         self._programs: dict[tuple, ServingProgram] = {}
         self._program_lock = threading.RLock()
         self._graph_pool = None
+        self._calls = itertools.count()  # mel_to_wav's call number, a span's attr
         self._workers = {}
         if len(self.devices) > 1:
             if (self.use_kernels or self.use_wn_kernels) and any(
@@ -254,39 +257,51 @@ class Vocoder:
         by :meth:`batch_eps` at the padded length. Over several ``devices``
         the rows, with their noise and ``sid``, are split by ``split_rows``
         and the shards' audio joined in order; a shard's exception is raised
-        here."""
+        here.
+
+        Spans (``utils/profiling.py``, recorded while a profiler runs):
+        ``synth.call`` (``call``, ``rows``, ``bucket``) around the call, and
+        inside it ``synth.pad``, ``synth.eps`` (``batch_eps``), ``synth.h2d``
+        (the copies to the device, on one device) and ``synth.trim``."""
         mel = np.asarray(mel, np.float32)
         b, t, _ = mel.shape
-        if lengths is None:
-            lengths = np.full((b,), t, np.int64)
         padded_t = self._bucket(t)
-        mel = np.pad(mel, ((0, 0), (0, padded_t - t), (0, 0)))
-        if eps is None:
-            eps_t = self.batch_eps(seed, b, padded_t)
-        else:
-            eps = np.asarray(eps, np.float32)
-            eps_t = torch.from_numpy(np.pad(eps, ((0, 0), (0, padded_t - eps.shape[1]), (0, 0))))
-        if len(self.devices) == 1:
-            o = self._decode_rows(mel, lengths, eps_t, noise_scale, sid)
-        else:
-            sid = None if sid is None else np.asarray(sid)
-            lens = np.asarray(lengths)
-            shards = [self._workers[d].submit(self._shard, d, mel[r], lens[r], eps_t[r],
-                                              noise_scale, None if sid is None else sid[r])
-                      for d, r in zip(self.devices, split_rows(b, len(self.devices)))
-                      if r.stop > r.start]
-            wait(shards)  # every shard ends before a failed one raises
-            o = np.concatenate([f.result() for f in shards])
-        hop = self.hps.data.hop_length
-        return [o[i, : int(lengths[i]) * hop, 0] for i in range(b)]
+        with span("synth.call", call=next(self._calls), rows=b, bucket=padded_t):
+            if lengths is None:
+                lengths = np.full((b,), t, np.int64)
+            with span("synth.pad"):
+                mel = np.pad(mel, ((0, 0), (0, padded_t - t), (0, 0)))
+                if eps is not None:
+                    eps = np.asarray(eps, np.float32)
+                    eps_t = torch.from_numpy(
+                        np.pad(eps, ((0, 0), (0, padded_t - eps.shape[1]), (0, 0))))
+            if eps is None:
+                with span("synth.eps"):
+                    eps_t = self.batch_eps(seed, b, padded_t)
+            if len(self.devices) == 1:
+                o = self._decode_rows(mel, lengths, eps_t, noise_scale, sid)
+            else:
+                sid = None if sid is None else np.asarray(sid)
+                lens = np.asarray(lengths)
+                shards = [self._workers[d].submit(self._shard, d, mel[r], lens[r], eps_t[r],
+                                                  noise_scale, None if sid is None else sid[r])
+                          for d, r in zip(self.devices, split_rows(b, len(self.devices)))
+                          if r.stop > r.start]
+                wait(shards)  # every shard ends before a failed one raises
+                o = np.concatenate([f.result() for f in shards])
+            hop = self.hps.data.hop_length
+            with span("synth.trim"):
+                return [o[i, : int(lengths[i]) * hop, 0] for i in range(b)]
 
     def _decode_rows(self, mel, lengths, eps, noise_scale, sid) -> np.ndarray:
         """``_infer`` of host rows on this object's device, read back to the host."""
         dev = self.device
-        o = self._infer(torch.from_numpy(mel).to(dev),
-                        torch.as_tensor(np.asarray(lengths), dtype=torch.int64, device=dev),
-                        eps.to(dev), noise_scale,
-                        None if sid is None else torch.as_tensor(np.asarray(sid), device=dev))
+        with span("synth.h2d"):
+            mel_d = torch.from_numpy(mel).to(dev)
+            lengths_d = torch.as_tensor(np.asarray(lengths), dtype=torch.int64, device=dev)
+            eps_d = eps.to(dev)
+            sid_d = None if sid is None else torch.as_tensor(np.asarray(sid), device=dev)
+        o = self._infer(mel_d, lengths_d, eps_d, noise_scale, sid_d)
         return o.float().cpu().numpy()
 
     def _shard(self, device, mel, lengths, eps, noise_scale, sid) -> np.ndarray:

@@ -37,6 +37,7 @@ import numpy as np
 
 from smart_vocoder_torch.inference import Vocoder
 from smart_vocoder_torch.programs import ServingProgram
+from smart_vocoder_torch.utils.profiling import span
 
 
 @dataclass
@@ -134,23 +135,29 @@ class StreamServer:
         Returns ``{handle: float32 waveform piece}`` for each stream that
         emitted. Streams without a ready window are skipped; when more than
         ``max_streams`` are ready, those with the oldest cursor go first and
-        the rest wait for the next call."""
+        the rest wait for the next call.
+
+        A step that decodes records the span ``serve.step`` (``windows``,
+        ``max_streams``, ``handles``: the streams decoded) while a profiler
+        runs (``utils/profiling.py``)."""
         ready = [(h, s) for h, s in self._streams.items()
                  if s.ready(self.step_frames, self.overlap)]
         if not ready:
             return {}
         ready.sort(key=lambda hs: (hs[1].start, hs[0]))
         ready = ready[: self.max_streams]
-        out: Dict[int, np.ndarray] = {}
-        for (h, s), (lo, hi, wav) in zip(ready, self._decode_batch(ready)):
-            keep_hi = min(hi, s.start + self.step_frames)
-            out[h] = wav[(s.start - lo) * self.hop: (keep_hi - lo) * self.hop]
-            s.start = keep_hi
-            keep_from = max(0, s.start - self.overlap - s.buf0)
-            s.buf, s.buf0 = s.buf[keep_from:], s.buf0 + keep_from
-            if s.closed and s.start >= s.end():
-                del self._streams[h]
-        return out
+        with span("serve.step", windows=len(ready), max_streams=self.max_streams,
+                  handles=[h for h, _ in ready]):
+            out: Dict[int, np.ndarray] = {}
+            for (h, s), (lo, hi, wav) in zip(ready, self._decode_batch(ready)):
+                keep_hi = min(hi, s.start + self.step_frames)
+                out[h] = wav[(s.start - lo) * self.hop: (keep_hi - lo) * self.hop]
+                s.start = keep_hi
+                keep_from = max(0, s.start - self.overlap - s.buf0)
+                s.buf, s.buf0 = s.buf[keep_from:], s.buf0 + keep_from
+                if s.closed and s.start >= s.end():
+                    del self._streams[h]
+            return out
 
     def _program(self, inputs) -> ServingProgram:
         """This shape's program, made at its first use on ``inputs``."""

@@ -38,6 +38,13 @@ Randomness is explicit: the posterior noise ``eps_q`` (B, T, inter), the
 slice starts ``ids_slice`` (B,) and the jigsaw permutation ``perm`` (4,) are
 passed in, or drawn from a ``torch.Generator`` (the JAX step splits one key,
 step.py:137 and synthesizer.py:292).
+
+While a profiler runs, the step records spans (``utils/profiling.py``):
+``train.step`` (``step``, ``rows``, ``frames``) around the call, and inside
+it ``train.forward`` (steps 1-2, with the batch's copy and the draws),
+``train.d_phase`` (step 3) and ``train.g_phase`` (step 4), which tile it but
+for the step count and the metrics dict; in each phase ``train.optim``
+(``net``: ``d`` or ``g``) around the optimizer's step and ``zero_grad``.
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ from smart_vocoder_torch.training.optim import make_optimizer
 from smart_vocoder_torch.training.sharded import ShardedAdamW
 from smart_vocoder_torch.utils.device import resolve_device
 from smart_vocoder_torch.utils.init import init_discriminator, init_synthesizer
+from smart_vocoder_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -168,9 +176,10 @@ def make_train_step(hps, device=None):
     clip_val = hps.train.get("clip_grad_value", None)
     clip_val = float(clip_val) if clip_val is not None else None
 
-    def update(opt, params, loss) -> torch.Tensor:
+    def update(opt, params, loss, net: str) -> torch.Tensor:
         """Gradients of ``loss`` for ``params`` -> their norm before the clamp
-        -> optional clamp -> one optimizer step."""
+        -> optional clamp -> one optimizer step (the span ``train.optim`` of
+        ``net``)."""
         grads = torch.autograd.grad(loss, params)
         if distributed:
             grads = dist_lib.average_gradients(grads)
@@ -182,40 +191,49 @@ def make_train_step(hps, device=None):
         else:
             for p, g in zip(params, grads):
                 p.grad = g
-        opt.step()
-        opt.zero_grad(set_to_none=True)
+        with span("train.optim", net=net):
+            opt.step()
+            opt.zero_grad(set_to_none=True)
         return norm.detach()
 
     def train_step(state: TrainState, batch: Batch, generator: torch.Generator | None = None,
                    eps_q: torch.Tensor | None = None, ids_slice: torch.Tensor | None = None,
                    perm: torch.Tensor | None = None):
-        net_g, net_d = state.net_g, state.net_d
-        batch = batch.to(device)
-        b, t = batch.spec.shape[:2]
-        gen_device = generator.device if generator is not None else device
-        if eps_q is None:
-            eps_q = torch.randn((b, t, inter), generator=generator, device=gen_device)
-        if perm is None:
-            perm = torch.randperm(4, generator=generator, device=gen_device)
-        mel = spec_to_mel(batch.spec.float(), mel_cfg)
+        with span("train.step", step=state.step, rows=int(batch.spec.shape[0]),
+                  frames=int(batch.spec.shape[1])):
+            return phases(state, batch, generator, eps_q, ids_slice, perm)
 
-        # ---- ONE generator forward; its graph serves the G phase ------------
-        y_hat, ids_slice, _, z_mask, (_, z_p, m_p, logs_p, _, logs_q) = net_g(
-            mel, batch.spec_lengths, batch.spec, batch.spec_lengths, eps_q.to(device),
-            ids_slice=ids_slice, generator=generator, sid=batch.sid)
-        y_mel = slice_segments(mel, ids_slice, seg_frames)
-        y = slice_segments(batch.wav, ids_slice * hop, seg_samples)
-        y_negative = nda_jigsaw(y, y_hat.detach(), perm)  # train.py:185 .detach()
+    def phases(state, batch, generator, eps_q, ids_slice, perm):
+        net_g, net_d = state.net_g, state.net_d
+        with span("train.forward"):
+            batch = batch.to(device)
+            b, t = batch.spec.shape[:2]
+            gen_device = generator.device if generator is not None else device
+            if eps_q is None:
+                eps_q = torch.randn((b, t, inter), generator=generator, device=gen_device)
+            if perm is None:
+                perm = torch.randperm(4, generator=generator, device=gen_device)
+            mel = spec_to_mel(batch.spec.float(), mel_cfg)
+
+            # ---- ONE generator forward; its graph serves the G phase --------
+            y_hat, ids_slice, _, z_mask, (_, z_p, m_p, logs_p, _, logs_q) = net_g(
+                mel, batch.spec_lengths, batch.spec, batch.spec_lengths, eps_q.to(device),
+                ids_slice=ids_slice, generator=generator, sid=batch.sid)
+            y_mel = slice_segments(mel, ids_slice, seg_frames)
+            y = slice_segments(batch.wav, ids_slice * hop, seg_samples)
+            y_negative = nda_jigsaw(y, y_hat.detach(), perm)  # train.py:185 .detach()
 
         # ---- discriminator phase (train.py:184-196) ------------------------
-        d_params = list(net_d.parameters())
-        y_d_r, y_d_g, _, _ = net_d(y.transpose(1, 2), y_negative.transpose(1, 2))
-        loss_disc, losses_disc_r, losses_disc_g = losses_lib.discriminator_loss(y_d_r, y_d_g)
-        grad_norm_d = update(state.opt_d, d_params, loss_disc)
+        with span("train.d_phase"):
+            d_params = list(net_d.parameters())
+            y_d_r, y_d_g, _, _ = net_d(y.transpose(1, 2), y_negative.transpose(1, 2))
+            loss_disc, losses_disc_r, losses_disc_g = losses_lib.discriminator_loss(y_d_r,
+                                                                                    y_d_g)
+            grad_norm_d = update(state.opt_d, d_params, loss_disc, "d")
 
         # ---- generator phase, through the UPDATED discriminator ------------
-        g_params = list(net_g.parameters())
-        with frozen(net_d):
+        with span("train.g_phase"), frozen(net_d):
+            g_params = list(net_g.parameters())
             y_hat_mel = mel_spectrogram(y_hat[..., 0].float(), mel_cfg)
             _, y_d_g, fmap_r, fmap_g = net_d(y.transpose(1, 2), y_hat.transpose(1, 2))
             loss_mel = losses_lib.mel_l1_loss(y_mel, y_hat_mel) * c_mel
@@ -227,7 +245,7 @@ def make_train_step(hps, device=None):
             loss_fm = losses_lib.feature_loss(fmap_r, fmap_g)
             loss_gen, losses_gen = losses_lib.generator_loss(y_d_g)
             loss_gen_all = loss_gen + loss_fm + loss_mel + loss_kl
-            grad_norm_g = update(state.opt_g, g_params, loss_gen_all)
+            grad_norm_g = update(state.opt_g, g_params, loss_gen_all, "g")
         state.step += 1
 
         # scalar names of the reference TB dashboard (train.py:224-229)
