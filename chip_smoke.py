@@ -23,7 +23,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    plain version's own state and skip sum; f32, the FMA route: the whole
    stack); the unpacked MRF stage at x (2, 64000, 128) and (1, 8192, 256)
    in bf16 (each faster than its plain version; the f32 FMA route timed at
-   the same shape) and a ragged length in bf16 and f32; the stage-3
+   the same shape) and a ragged length in bf16 and f32; its F32_STORAGE mode
+   (hifi >= 2's stages 1-2) at the batch and live cells' stage shapes,
+   (32, 8192 | 3072, 256) and (32, 65536 | 24576, 128), and two ragged
+   lengths, each faster than the cuDNN ``mixed_f32`` route it replaces; the stage-3
    fold-up u (2, 64000, 128) -> (2, 128000, 64) -- in the modes the serving
    paths use (stage 3: f32_storage, bf16, x2; stage 4: hifi, bf16), plus
    ragged lengths, and the two stages' f32 FMA route on true-f32 inputs and
@@ -46,8 +49,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    hifi 2 with it (printed: the reference's bf16-prior combination), and
    ``decoder_apply(pallas_stage2=True)`` on the hifi-0 path's prior latent
    (<= 5e-2), plus one 1024-frame request that routes stage 1 (256
-   channels) to the unpacked kernel; each path's kernels must have launched,
-   and no f32 FMA body (``*_fma``) on any of them.
+   channels) to the unpacked kernel; each path's kernels must have launched
+   (hifi 2: stages 1-2 on the F32_STORAGE pair kernel too, 18 launches a
+   call), and no f32 FMA body (``*_fma``) on any of them.
 5. timing: B=32 x 1000 frames (bench.py's protocol: warm-up, iterations,
    synchronize) for hifi 2, hifi 0, hifi 0 + WN kernels, the pallas_stage2
    route (weights packed once by ``pack_decoder``) and the plain f32 path,
@@ -75,8 +79,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    B = 1 ``stream_mel_to_wav`` (mel-L1 <= 1e-3). Every window and server
    step is a replay of its program's CUDA graph (``programs.py``), made by
    ``warmup`` before the counted paths; each of these paths runs with the
-   counts reset just before it: one launch of each stage kernel a window or
-   server step (a replay adds its capture's tally), no ``*_fma``. The
+   counts reset just before it: a hifi-2 call's stage kernels a window or
+   server step (stages 3-4 once, 18 F32_STORAGE pair launches; a replay adds
+   its capture's tally), no ``*_fma``. The
    programs: (a) replays bit-equal to the eager launches on the same buffers
    (``tools/bench_streaming.py:eager_window``, ``eager_decode``) for windows
    of 1024 and 384 frames at hifi 2 and on the hifi-0 + WN route, and for
@@ -143,7 +148,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    search keeps its choices per thread, and each device's shards run on a
    thread of their own), the timing with the search on, as phase 5. (a) Two
    shards on ``cuda:0``, B = 32 x 1000 with
-   ``seed=`` noise: one launch of each stage kernel a shard (counts reset just
+   ``seed=`` noise: a hifi-2 call's stage kernels a shard (counts reset just
    before), each 16-row shard bit-equal to the one-device ``Vocoder``'s
    decode of its rows (the noise split with them), the 32 rows within mel-L1
    1e-3 of the one-device 32-row decode and 1e-2 of the f32 path; host ms a
@@ -398,7 +403,8 @@ def bound(flops: float, tensors) -> dict:
 
 
 TENSOR_CORE_KERNELS = ("up_mrf_stage_kernel", "mrf_stage_kernel", "mrf_pair_mma_kernel",
-                       "wn_stack_mma_kernel", "mrf_pair_bwd_kernel", "mrf_dw_mma_kernel")
+                       "mrf_pair_f32s_kernel", "wn_stack_mma_kernel", "mrf_pair_bwd_kernel",
+                       "mrf_dw_mma_kernel")
 
 
 def sass_mma_counts(so: str) -> dict:
@@ -436,6 +442,65 @@ def mrf_flops(b: int, t: int, c: int, ks, n_pairs: int) -> float:
     return 2.0 * n_pairs * sum(2 * k for k in ks) * c * c * t * b
 
 
+# The stage kernels of one hifi-2 call or step of iitp_base: stages 3-4 once
+# each, and stages 1-2 (256 and 128 channels) in the unpacked kernel's
+# F32_STORAGE mode, one launch per residual pair of each branch.
+STAGE_KERNELS = {"mrf_stage": 1, "up_mrf_stage": 1}
+HIFI2_KERNELS = {**STAGE_KERNELS, "mrf_stage_unpacked_f32s": 18}
+# hifi >= 2's early-decoder MRF stages on the F32_STORAGE kernel: the batch
+# cell's (32 x 1024 frames) and the live cell's (32 x 384) stages 1 and 2, and
+# two ragged lengths
+F32S_SHAPES = ((0, (32, 8192, 256)), (1, (32, 65536, 128)), (0, (32, 3072, 256)),
+               (1, (32, 24576, 128)), (0, (3, 1234, 256)), (1, (3, 12345, 128)))
+
+
+def unpacked_f32s_kernels(card: str, dev, stage_branches, ks, dil, rng) -> dict:
+    """Phase 3's F32_STORAGE unpacked stage (``mrf_stage_unpacked(f32_storage=
+    True)``) at ``F32S_SHAPES``: 9 launches a stage, weights packed once give
+    the same bits, the result against its plain version (the bf16-rounding
+    rule of ``compare``) and, at the cell shapes, the kernel's ms beside its
+    bound, its plain version and the cuDNN route it replaces
+    (``mrf_stage_reference(mixed_f32=True)``, TF32 off). Returns the record of
+    the batch cell's stage 2."""
+    import torch
+
+    from smart_vocoder_torch.kernels import mrf as K
+
+    out = {}
+    for stage, shape in F32S_SHAPES:
+        x = torch.from_numpy(rng.normal(0, 0.5, shape).astype(np.float32)).to(dev)
+        br = stage_branches(stage, torch.bfloat16)
+        tag = f"mrf_stage_unpacked {shape} f32_storage"
+        before = K.LAUNCHES["mrf_stage_unpacked_f32s"]
+        got = K.mrf_stage_unpacked(x, br, ks, dil, f32_storage=True)
+        if K.LAUNCHES["mrf_stage_unpacked_f32s"] != before + len(ks) * len(dil):
+            raise RuntimeError(f"{tag}: did not take mrf_stage_unpacked_f32s")
+        packed = K.pack_mrf_stage(br, dev)
+        if not torch.equal(got, K.mrf_stage_unpacked(x, br, ks, dil, f32_storage=True,
+                                                     packed=packed)):
+            raise RuntimeError(f"{tag}: weights packed once give other bits")
+        want = K.mrf_stage_plain(x, br, ks, dil, K.F32_STORAGE)
+        exact = K.mrf_stage_plain(x, br, ks, dil, K.F32)
+        err = compare(tag, got, want, exact, False, ulp_slack=True)
+        del want, exact
+        if shape[0] == 32:
+            times = kernel_times(
+                lambda: K.mrf_stage_unpacked(x, br, ks, dil, f32_storage=True, packed=packed),
+                lambda: K.mrf_stage_plain(x, br, ks, dil, K.F32_STORAGE), 2,
+                earlier=lambda: K.mrf_stage_reference(x, br, ks, dil, mixed_f32=True))
+            ms = times["ms"]
+            bnd = bound(mrf_flops(*shape, ks, len(dil)), [x, got, *sum(br, ())])
+            log(f"  {tag}: kernel {ms:.3f} ms ({times['ms_min']:.3f}-{times['ms_max']:.3f}; "
+                f"{bnd['flops'] / ms / 1e9:.1f} TFLOP/s), plain {times['plain_ms']:.2f} ms, "
+                f"bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']}), cuDNN mixed_f32 route "
+                f"{times['earlier_ms']:.2f} ms  [{card}]")
+            if not ms < times["earlier_ms"]:
+                raise RuntimeError(f"{tag}: the kernel is not faster than the cuDNN route")
+            out[str(shape)] = {"max_abs_err": err, **times, **bnd}
+        del x, got
+    return out
+
+
 def profile_step(label: str, fn, card: str, rows: int) -> None:
     """One step under torch.profiler: wall, device-busy share, top kernels."""
     import torch
@@ -468,7 +533,8 @@ SWEEP_ROWS = (1, 8, 32)
 # the kernels of a replay by the name in the profiler's trace (a lookbehind
 # keeps up_mrf_stage_kernel out of mrf_stage_kernel's count)
 TRACE_KERNELS = {"up_mrf_stage": r"up_mrf_stage_kernel", "mrf_stage": r"(?<!\w)mrf_stage_kernel",
-                 "wn_stack": r"wn_stack_mma_kernel"}
+                 "wn_stack": r"wn_stack_mma_kernel",
+                 "mrf_stage_unpacked_f32s": r"mrf_pair_f32s_kernel"}
 
 
 def replay_trace(label: str, fn, want: dict, card: str, rows: int = 8) -> float:
@@ -541,8 +607,8 @@ def live_programs(vocoder_hifi2, vocoder_wn0, voc_ms, card: str, rng) -> None:
 
     t_part = time.perf_counter()
     n_mels = vocoder_hifi2.hps.data.n_mel_channels
-    stages = {"mrf_stage": 1, "up_mrf_stage": 1}
-    wn = {"wn_stack": 12, **stages}
+    stages = HIFI2_KERNELS
+    wn = {"wn_stack": 12, **STAGE_KERNELS}
 
     # (a) graph against eager, bit for bit
     for label, voc in (("hifi 2", vocoder_hifi2), ("hifi 0 + WN kernels", vocoder_wn0)):
@@ -679,7 +745,7 @@ def live_serving(vocoder_hifi2, vocoder_f32, vocoder_wn0, mel_l1, card: str, rng
     dev = vocoder_hifi2.device
     hps = vocoder_hifi2.hps
     n_mels, inter = hps.data.n_mel_channels, hps.model.inter_channels
-    stages = {"mrf_stage": 1, "up_mrf_stage": 1}  # one launch of each a window or step
+    stages = HIFI2_KERNELS  # the stage kernels' launches a window or step
 
     # the noise: the same Philox words on the card as on the CPU; the normals
     # within 1e-6 (float64 log/cos/sin, rounded once to float32)
@@ -737,7 +803,8 @@ def live_serving(vocoder_hifi2, vocoder_f32, vocoder_wn0, mel_l1, card: str, rng
     short = mel[:2000]
     wn = live_path("chunked hifi 0 + WN kernels",
                    lambda: vocoder_wn0.mel_to_wav_chunked(short, **kw),
-                   {"wn_stack": 12, **stages}, lambda: windows(len(short), chunk, overlap))
+                   {"wn_stack": 12, **STAGE_KERNELS},
+                   lambda: windows(len(short), chunk, overlap))
     log(f"live chunked hifi 0 + WN kernels: mel-L1 vs the plain f32 path chunked "
         f"{mel_l1([wn], [f32[:len(wn)]]):.5f} (printed)")
 
@@ -1531,14 +1598,14 @@ def data_parallel_phase(card: str, hps, state, vocoder_one, vocoder_f32, mel_l1)
 
     def shard_launches(voc, mel, shards):
         """``voc.mel_to_wav(mel, seed=SEED)`` with the counts reset just before:
-        one launch of each stage kernel a shard, no FMA body."""
+        a hifi-2 call's stage kernels a shard, no FMA body."""
         K.reset_launch_counts()
         wavs = voc.mel_to_wav(mel, seed=SEED)
         torch.cuda.synchronize()
         got = {k: v for k, v in K.LAUNCHES.items() if v}
-        if got != {"mrf_stage": shards, "up_mrf_stage": shards}:
-            raise RuntimeError(f"{shards} shards launched {got}, expected one of each stage "
-                               "kernel a shard")
+        if got != {k: v * shards for k, v in HIFI2_KERNELS.items()}:
+            raise RuntimeError(f"{shards} shards launched {got}, expected a hifi-2 call's "
+                               f"stage kernels a shard ({HIFI2_KERNELS})")
         if not all(w.shape == (DP_FRAMES * HOP,) and np.isfinite(w).all() for w in wavs):
             raise RuntimeError("a shard's audio is not finite or has the wrong length")
         return wavs, got
@@ -1956,15 +2023,15 @@ def convergence_tools_phase(card: str, dev) -> dict:
                 reset_launch_counts()
                 rec = make_ms_samples.sample(voc, clip, sid, out_dir)
                 launches = {k: v for k, v in LAUNCHES.items() if v}
-                if launches != {"mrf_stage": 1, "up_mrf_stage": 1}:
+                if launches != HIFI2_KERNELS:
                     raise RuntimeError(f"samples: launches a call {launches}")
                 if not math.isfinite(rec["mel_l1"]):
                     raise RuntimeError(f"samples: mel-L1 {rec['mel_l1']}")
                 wavs.append(rec["wav"])
             if np.array_equal(wavs[0], wavs[1]):
                 raise RuntimeError(f"samples: sids {MS_SIDS} give the same audio for {clip}")
-        log(f"  samples of G_{MS_STEPS}.pth: {len(clips)} clips x sids {MS_SIDS}, one launch "
-            f"of each stage kernel a call, the speakers' audio different  [{card}]")
+        log(f"  samples of G_{MS_STEPS}.pth: {len(clips)} clips x sids {MS_SIDS}, a hifi-2 "
+            f"call's stage kernels a call, the speakers' audio different  [{card}]")
         log(f"  phase 15 wall {time.perf_counter() - t_phase:.1f} s")
         return {"mel": mel, "kl": kl, "train_wall_s": wall}
     finally:
@@ -2030,10 +2097,11 @@ def main() -> int:
         wgmma = c >= 64 and not kernel.startswith("mrf_dw_mma")
         if ops["HGMMA" if wgmma else "HMMA"] == 0 or ops["HMMA" if wgmma else "HGMMA"] != 0:
             raise RuntimeError(f"{kernel}: not the MMA its channel count takes: {ops}")
-    if len(sass) != 27:
-        raise RuntimeError("expected the 6 + 4 instantiations of the stage kernels, 4 + 4 of "
-                           "the unpacked stage's pair (stage, replay), 1 of the WN stack, 4 of "
-                           f"the backward's dx step and 4 of its weight gradients: {sass}")
+    if len(sass) != 29:
+        raise RuntimeError("expected the 6 + 4 instantiations of the stage kernels, 4 + 4 + 2 "
+                           "of the unpacked stage's pair (stage, replay, F32_STORAGE), 1 of the "
+                           "WN stack, 4 of the backward's dx step and 4 of its weight "
+                           f"gradients: {sass}")
 
     hps = load_config(os.path.join(ROOT, "configs", "iitp_base.json"))
     net = init_synthesizer(build_synthesizer(hps, weight_norm=True), SEED)
@@ -2232,6 +2300,13 @@ def main() -> int:
                     rec.update(**times, **bnd)
                 del x32, br32
         del x, xd, got, want, exact
+    # the unpacked stage's F32_STORAGE mode (stages 1-2 at hifi >= 2)
+    # its own generator, so the checks after it see the inputs they always saw
+    f32s = unpacked_f32s_kernels(card, dev, stage_branches, ks, dil,
+                                 np.random.default_rng(SEED + 19))
+    records["mrf_stage_unpacked_f32s"] = {
+        **f32s[str((32, 65536, 128))],
+        "max_abs_err": max(r["max_abs_err"] for r in f32s.values())}
     up_w, up_b = dec["ups.2.weight"], dec["ups.2.bias"]
     for tu in (64000, 4321):
         u = torch.from_numpy(rng.normal(0, 0.5, (2, tu, 128)).astype(np.float32)).to(dev)
@@ -2515,7 +2590,7 @@ def main() -> int:
         return served, counts, l1
 
     served, launches, l1_hifi2 = serve("hifi 2", lambda: requests(vocoder(vocoder_hifi2)),
-                                       ("mrf_stage", "up_mrf_stage"), 1e-2)
+                                       tuple(HIFI2_KERNELS), 1e-2)
     if served[-1].shape != (317 * HOP,):
         raise RuntimeError(f"short request: {served[-1].shape}")
     serve("hifi 0", lambda: requests(vocoder(vocoder_hifi0)), ("mrf_stage", "up_mrf_stage"),
@@ -2559,9 +2634,9 @@ def main() -> int:
         fn(mel32, lens32, eps32)
         torch.cuda.synchronize()
         per_step = {k: v for k, v in K.LAUNCHES.items() if v}
-        if label in ("hifi2", "hifi0") and per_step != {"mrf_stage": 1, "up_mrf_stage": 1}:
-            raise RuntimeError(f"{label}: a step is one launch of each stage kernel, got "
-                               f"{per_step}")
+        if label in ("hifi2", "hifi0") and per_step != (
+                HIFI2_KERNELS if label == "hifi2" else STAGE_KERNELS):
+            raise RuntimeError(f"{label}: a step's stage kernels, got {per_step}")
         # the two opt-in paths run their redesigned kernels, and no FMA body
         want = {"hifi0_wn": {"wn_stack": 12, "mrf_stage": 1, "up_mrf_stage": 1},
                 "pallas_stage2": {"mrf_stage_unpacked": per_stage, "up_mrf_stage": 2}}
@@ -2707,6 +2782,11 @@ def main() -> int:
          "source": "smart_vocoder_torch/kernels/csrc/mrf_pair.cu",
          "replaces": "smart_vocoder_tpu/kernels/mrf.py:129",
          "launches": launches_s2["mrf_stage_unpacked"], **records["mrf_stage_unpacked"]},
+        {"name": "mrf_stage_unpacked_f32s", "route": "cuda",
+         "source": "smart_vocoder_torch/kernels/csrc/mrf_pair.cu",
+         "replaces": "smart_vocoder_tpu/kernels/mrf.py:mrf_stage_reference(mixed_f32=True)",
+         "launches": launches["mrf_stage_unpacked_f32s"],
+         **records["mrf_stage_unpacked_f32s"]},
         {"name": "wn_stack", "route": "cuda",
          "source": "smart_vocoder_torch/kernels/csrc/wn_stack.cu",
          "replaces": "smart_vocoder_tpu/kernels/wn_stack.py:132",

@@ -5,7 +5,8 @@
   ``out_dtype`` the packed-MRF A/B variants of ``scripts/exp_mrf_variants.py``.
 - :func:`mrf_stage_unpacked` -- the MRF stage in ``x.dtype`` at 32-256
   channels (stages 2 and 1 under ``pallas_stage2``); replaces
-  ``fused_mrf_stage``.
+  ``fused_mrf_stage``. With ``f32_storage`` (128 and 256 channels) it runs
+  hifi >= 2's stages 1-2, the function of ``mrf_stage_reference(mixed_f32=True)``.
 - :func:`up_mrf_stage` -- upsample + MRF [+ decoder tail] (stage 4, or stage
   3 under ``pallas_stage2``); replaces ``fused_up_mrf_stage``.
 - :func:`wn_stack` -- the fused WN layers of the prior and the flow

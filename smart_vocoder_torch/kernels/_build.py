@@ -45,6 +45,8 @@ _SIGNATURES = {
     # x, out, s0, s1, acc, w (packed bf16 tiles), bias, B, T, C, tile, nb, k0..k2, np,
     # d0..d2, n_launched (out), stream
     "svt_mrf_stage_unpacked": [_P] * 7 + [_I] * 12 + [ctypes.POINTER(_I), _P],
+    # the same in F32_STORAGE mode: x, out, s0, s1 f32, w the same bf16 tiles
+    "svt_mrf_stage_unpacked_f32s": [_P] * 7 + [_I] * 12 + [ctypes.POINTER(_I), _P],
     # the same, all f32, w as flat [branch][w1 of every pair, w2 of every pair]
     "svt_mrf_stage_unpacked_fma": [_P] * 7 + [_I] * 12 + [ctypes.POINTER(_I), _P],
     # x, mask, x_out, skip, w (packed bf16 tiles), b_in, b_rs, B, T, H, tile, n_layers,
@@ -78,6 +80,8 @@ def pick_tile(smem_bytes) -> int:
 LAUNCHES: dict[str, int] = {"mrf_stage": 0, "up_mrf_stage": 0, "mrf_stage_unpacked": 0,
                             "wn_stack": 0, "fused_gate": 0, "mrf_branch_bwd": 0,
                             "mrf_stage_variant": 0,
+                            # the unpacked stage in F32_STORAGE mode (hifi >= 2's early decoder)
+                            "mrf_stage_unpacked_f32s": 0,
                             # the f32 FMA bodies of six of the above (true-f32 weights)
                             "mrf_stage_fma": 0, "up_mrf_stage_fma": 0,
                             "mrf_stage_variant_fma": 0, "mrf_stage_unpacked_fma": 0,

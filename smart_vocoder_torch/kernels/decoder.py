@@ -12,6 +12,11 @@ lrelu -> transposed-conv upsample -> MRF -> lrelu(0.01) -> conv_post -> tanh
 whose channel counts the kernels are not built for, run cuDNN convolutions
 with the plain MRF (:func:`mrf_stage_reference`). At iitp_base these are
 stages 4 (64 -> 32 channels) and 3 (64 channels), the late narrow stages.
+At hifi >= 2 with bf16 weights, an earlier stage whose channels are a
+multiple of 128 that the unpacked kernel takes runs its MRF on
+:func:`mrf_stage_unpacked` in F32_STORAGE mode instead, which computes what
+``mrf_stage_reference(mixed_f32=True)`` does on the tensor cores (stages 1-2
+at iitp_base, 256 and 128 channels); its upsample stays on cuDNN.
 
 ``pallas_stage2=True`` is the JAX package's route of the same name
 (decoder.py:209-255, driven by scripts/exp_stage2_e2e.py): a stage of 64
@@ -33,6 +38,7 @@ import torch.nn.functional as F
 
 from smart_vocoder_torch.kernels.mrf import (
     LRELU_SLOPE,
+    F32S_CHANNELS,
     MRF_CHANNELS,
     POST_SLOPE,
     UP_CHANNELS,
@@ -134,11 +140,24 @@ def _unpacked_route(cfg: DecoderConfig, stage: int, pallas_stage2: bool) -> bool
             and _stage_kernel(cfg, stage, pallas_stage2) is None)
 
 
+def _f32s_route(cfg: DecoderConfig, stage: int, dtype, hifi: int,
+                pallas_stage2: bool) -> bool:
+    """Whether a stage's MRF runs on ``mrf_stage_unpacked(f32_storage=True)``:
+    at hifi >= 2 (the early decoder's f32 activations over bf16 weights, the
+    function of ``mrf_stage_reference(mixed_f32=True)``), outside
+    ``pallas_stage2``, for a stage without a kernel of its own whose channels
+    the unpacked kernel takes and are a multiple of 128, ``F32S_CHANNELS``
+    (stages 1-2 at iitp_base). Any length: the kernel masks its ragged tile."""
+    ch = cfg.upsample_initial_channel // (2 ** (stage + 1))
+    return (int(hifi) >= 2 and dtype == torch.bfloat16 and not pallas_stage2
+            and ch in F32S_CHANNELS and _stage_kernel(cfg, stage, pallas_stage2) is None)
+
+
 class PackedStage(NamedTuple):
     """One stage's weights as :func:`decoder_apply` uses them at every step:
     the stacked branches, and the layout of the stage's tensor-core kernel
-    (the unpacked stage's under ``pallas_stage2``) where it has one and its
-    weights are bf16 values."""
+    (the unpacked stage's under ``pallas_stage2`` or in F32_STORAGE mode)
+    where it has one and its weights are bf16 values."""
     branches: List[BranchWeights]
     kernel: Union[PackedMRF, PackedUpMRF, None]
 
@@ -170,8 +189,10 @@ def pack_decoder(params_dec: Mapping[str, torch.Tensor], cfg: DecoderConfig,
                 device=branches[0][0].device)
         elif kernel == "mrf_stage" and bf16:
             packed = pack_mrf_stage(branches, branches[0][0].device)
-        elif kernel is None and _unpacked_route(cfg, i, pallas_stage2) and bf16:
-            # the unpacked kernel's weights, for the lengths that take it
+        elif kernel is None and ((_unpacked_route(cfg, i, pallas_stage2) and bf16)
+                                 or _f32s_route(cfg, i, dtype, hifi, pallas_stage2)):
+            # the unpacked kernel's weights (under pallas_stage2, for the lengths
+            # that take it)
             packed = pack_mrf_stage(branches, branches[0][0].device)
         stages.append(PackedStage(branches, packed))
     return stages
@@ -242,6 +263,9 @@ def decoder_apply(params_dec: Mapping[str, torch.Tensor], x: torch.Tensor,
                           packed=kernel_weights).transpose(1, 2)
         elif _unpacked_route(cfg, i, pallas_stage2) and y.shape[2] % 512 == 0:
             y = mrf_stage_unpacked(y.transpose(1, 2).to(dtype), branches, ks, dil,
+                                   packed=kernel_weights).transpose(1, 2)
+        elif _f32s_route(cfg, i, dtype, hifi, pallas_stage2):
+            y = mrf_stage_unpacked(y.transpose(1, 2), branches, ks, dil, f32_storage=True,
                                    packed=kernel_weights).transpose(1, 2)
         else:
             y = mrf_stage_reference(y.transpose(1, 2), branches, ks, dil,

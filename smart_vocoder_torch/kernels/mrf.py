@@ -12,7 +12,9 @@ Three kernels, counterparts of the JAX package's Pallas kernels:
   fused_mrf_stage_packed`` (decoder stage 3);
 - :func:`mrf_stage_unpacked` replaces ``fused_mrf_stage`` (the unpacked
   stage in ``x.dtype``: stage 2, and stage 1 when its length allows, under
-  ``decoder_apply(pallas_stage2=True)``; the forward of ``mrf_stage_train``);
+  ``decoder_apply(pallas_stage2=True)``; the forward of ``mrf_stage_train``)
+  and, with ``f32_storage``, the XLA convolutions of
+  ``mrf_stage_reference(mixed_f32=True)`` (stages 1-2 at hifi >= 2);
 - :func:`up_mrf_stage` replaces ``fused_up_mrf_stage`` (decoder stage 4, or
   stage 3 under ``pallas_stage2``): lrelu -> ConvTranspose1d upsample -> the
   MRF stage, optionally followed by the decoder tail lrelu(0.01) -> conv_post
@@ -25,7 +27,8 @@ for a CPU tensor it runs the plain PyTorch version beside it
 (:func:`mrf_stage_plain`, :func:`up_mrf_stage_plain`), which the tests and
 ``chip_smoke.py`` hold the kernels against. ``mrf_stage_unpacked`` is
 ``fused_mrf_stage``'s contract, which is the BF16 mode for a bf16 ``x`` and
-the F32 mode for an f32 one, so its plain version is ``mrf_stage_plain``.
+the F32 mode for an f32 one (F32_STORAGE with ``f32_storage``), so its plain
+version is ``mrf_stage_plain``.
 
 What bounds the three on the card is arithmetic (a stage is 252*C*C FLOP a
 row against a few hundred bytes), so their kernels (``csrc/mrf_stage.cu``,
@@ -57,7 +60,8 @@ kernels cast):
   output are bf16 (f32 accumulation); the leaky slope and its product are
   bf16 too, as JAX evaluates ``x * 0.1`` on a bf16 array.
 - ``F32_STORAGE``: f32 storage and output, each conv operand rounded once to
-  bf16 (``fused_mrf_stage_packed(f32_storage=True)``, hifi levels 1-2).
+  bf16 (``fused_mrf_stage_packed(f32_storage=True)``, hifi levels 1-2; and
+  ``mrf_stage_reference(mixed_f32=True)``, hifi >= 2's early decoder).
 - ``F32``: no rounding of activations. This is the JAX f32 mode and also its
   ``x2`` / ``hifi`` modes: there the kernels, like the JAX ones, take each
   f32 operand as a hi + lo pair of bf16 values (:func:`split_hi_lo`), which
@@ -105,6 +109,7 @@ BranchWeights = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 MRF_CHANNELS = (32, 64)  # the kernels are instantiated for these channel counts
 UNPACKED_CHANNELS = (32, 64, 128, 256)
+F32S_CHANNELS = (128, 256)  # the unpacked stage's F32_STORAGE kernel: multiples of 128
 UP_CHANNELS = ((64, 32), (128, 64))  # (Cin, Cout)
 
 
@@ -563,37 +568,47 @@ def mrf_stage(x: torch.Tensor, branches: List[BranchWeights], kernel_sizes: Sequ
 
 def mrf_stage_unpacked(x: torch.Tensor, branches: List[BranchWeights],
                        kernel_sizes: Sequence[int], dilations: Sequence[int] = DILATIONS,
-                       packed: Optional[PackedMRF] = None) -> torch.Tensor:
+                       packed: Optional[PackedMRF] = None,
+                       f32_storage: bool = False) -> torch.Tensor:
     """One MRF stage over ``x (B, T, C)`` in ``x.dtype`` (port of
     ``fused_mrf_stage``, mrf.py:60-168): BF16 mode for a bf16 ``x`` (one
     rounding after conv plus bias, bf16 leaky and residual, f32 branch mean),
     F32 for an f32 one. Weights are rounded to ``x.dtype``; the output has
-    ``x.dtype``.
+    ``x.dtype``. ``f32_storage`` (an f32 ``x``) runs F32_STORAGE mode
+    instead, the function of ``mrf_stage_reference(mixed_f32=True)``: weights
+    rounded to bf16, each conv operand rounded once to bf16, f32 states,
+    residuals, branch sum and output.
 
     The CUDA kernels run one residual pair of one branch per launch, over
     time tiles with that pair's own halo, so their shared memory fits at
     C = 256. A bf16 ``x`` runs on the tensor cores
     (``csrc/mrf_pair.cu:svt_mrf_stage_unpacked``; ``mma.sync`` at 32
-    channels, ``wgmma`` from 64); an f32 ``x`` keeps its weights in f32, which
-    a product of bf16 pairs does not compute, so it runs the f32 FMA kernel
-    (``csrc/mrf_stage_fma.cu:svt_mrf_stage_unpacked_fma``, counted as
+    channels, ``wgmma`` from 64), and so does ``f32_storage`` at 128 and 256
+    channels (``svt_mrf_stage_unpacked_f32s``, counted as
+    ``mrf_stage_unpacked_f32s``); a plain f32 ``x`` keeps its weights in f32,
+    which a product of bf16 pairs does not compute, so it runs the f32 FMA
+    kernel (``csrc/mrf_stage_fma.cu:svt_mrf_stage_unpacked_fma``, counted as
     ``mrf_stage_unpacked_fma``). ``packed``: the weights from
-    :func:`pack_mrf_stage` for these branches (a bf16 ``x`` only), else they
-    are packed on each call."""
+    :func:`pack_mrf_stage` for these branches (bf16-valued weights only: a
+    bf16 ``x`` or ``f32_storage``), else they are packed on each call."""
     _check_input("mrf_stage_unpacked", x)
-    mode = BF16 if x.dtype == torch.bfloat16 else F32
-    branches = [tuple(_round_to(a, x.dtype) for a in br) for br in branches]
+    if f32_storage and x.dtype != torch.float32:
+        raise TypeError("mrf_stage_unpacked: f32_storage takes an f32 x")
+    mode = F32_STORAGE if f32_storage else BF16 if x.dtype == torch.bfloat16 else F32
+    wdt = torch.float32 if mode == F32 else torch.bfloat16
+    branches = [tuple(_round_to(a, wdt) for a in br) for br in branches]
     bsz, t, c = x.shape
     _check_branches(branches, kernel_sizes, dilations, c)
     if packed is not None:
         n_w = 2 * len(dilations) * sum(kernel_sizes) * c * c
-        _check_packed("mrf_stage_unpacked", x, mode == BF16, packed,
+        _check_packed("mrf_stage_unpacked", x, mode != F32, packed,
                       (n_w, 2 * len(dilations) * len(branches) * c))
     if x.device.type == "cpu":
         return mrf_stage_plain(x, branches, kernel_sizes, dilations, mode)
 
-    if c not in UNPACKED_CHANNELS:
-        raise ValueError(f"mrf_stage_unpacked kernel: C={c} not in {UNPACKED_CHANNELS}")
+    channels = F32S_CHANNELS if f32_storage else UNPACKED_CHANNELS
+    if c not in channels:
+        raise ValueError(f"mrf_stage_unpacked kernel: C={c} not in {channels}")
     if bsz > 65535:
         raise ValueError("mrf_stage_unpacked kernel: batch above 65535")
     x = x.contiguous()
@@ -605,10 +620,12 @@ def mrf_stage_unpacked(x: torch.Tensor, branches: List[BranchWeights],
     s1 = torch.empty_like(x) if n_pairs > 2 else out
     acc = (torch.empty((bsz, t, c), device=x.device, dtype=torch.float32)
            if n_branches > 1 else out)
-    if mode == BF16:
+    if mode != F32:
         tile = unpacked_tile(c, kernel_sizes, dilations)
         w, b = packed or pack_mrf_stage(branches, x.device)
-        name, entry = "mrf_stage_unpacked", load_library().svt_mrf_stage_unpacked
+        lib = load_library()
+        name, entry = (("mrf_stage_unpacked_f32s", lib.svt_mrf_stage_unpacked_f32s)
+                       if f32_storage else ("mrf_stage_unpacked", lib.svt_mrf_stage_unpacked))
     else:
         h = max((k - 1) // 2 for k in kernel_sizes)
         halo = h * max(dilations) + 2 * h  # conv1's operand halo plus conv2's

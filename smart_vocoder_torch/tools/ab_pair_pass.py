@@ -50,7 +50,7 @@ PATCHED = ("load_library", "_conv_tiles", "unpacked_smem_bytes", "pair_geometry"
 
 # The pass-split geometry and GEMM, put in place of the tree's PairGeometry,
 # smem_bytes and pair_conv in csrc/mrf_pair.cuh (everything from the struct to
-# the kernel).
+# the state type and the pair's body).
 SPLIT_SOURCE = r"""
 constexpr int kPassN = PASS_N;
 
@@ -123,7 +123,7 @@ def _split_sources(n: int, src) -> None:
     path = src / "mrf_pair.cuh"
     text = path.read_text()
     start = text.index("template <int C>\nstruct PairGeometry")
-    end = text.index("template <int C, bool REPLAY>\n__global__")
+    end = text.index("template <int MODE>\nusing PairState")
     ring = "ring_start<C, G::KT,"
     if text.count(ring) != 1:
         raise RuntimeError(f"{path}: no single '{ring}'")

@@ -307,3 +307,69 @@ def test_hifi_level3_early_f32(gen_setup):
         e0 = np.abs(np.asarray(got_l0, np.float32) - np.asarray(want_dec)).mean()
         assert got_l3.shape == want_dec.shape
         assert e3 < e0, (pallas, e3, e0)
+
+
+@pytest.mark.parametrize("hifi", [0, 1, 2, 3])
+def test_port_hifi2_routes_early_mrf_stages_to_the_f32_storage_kernel(hifi, monkeypatch):
+    """The port's ``decoder_apply`` on the 256 / 128 / 64 / 32-channel
+    stages of iitp_base: at hifi >= 2 stages 1-2 run their MRF on
+    ``mrf_stage_unpacked(f32_storage=True)`` (the unpacked kernel's
+    F32_STORAGE mode on the card) and no ``mixed_f32`` plain stage is left;
+    hifi 0 and 1, and ``pallas_stage2`` at every level, keep their routes.
+    The output matches the former ``mixed_f32`` route to 1e-6 (the two compute
+    one function: bf16 operands, f32 sums; on the CPU both run the same
+    convolutions, so they agree to the bit)."""
+    import torch
+
+    from smart_vocoder_torch.kernels import decoder as tdec
+
+    cfg = tdec.DecoderConfig("1", (3, 7, 11), ((1, 3, 5),) * 3, (2, 2, 2, 2), 512, (4, 4, 4, 4))
+    rng = np.random.default_rng(hifi)
+    ch, p = 512, {"conv_pre.weight": torch.from_numpy(rng.normal(0, 0.1, (512, 8, 7))).float(),
+                  "conv_pre.bias": torch.from_numpy(rng.normal(0, 0.1, 512)).float()}
+    for i in range(4):
+        p[f"ups.{i}.weight"] = torch.from_numpy(rng.normal(0, 0.05, (ch, ch // 2, 4))).float()
+        p[f"ups.{i}.bias"] = torch.from_numpy(rng.normal(0, 0.1, ch // 2)).float()
+        ch //= 2
+        for j, kb in enumerate(cfg.resblock_kernel_sizes):
+            for kind in ("convs1", "convs2"):
+                for n in range(3):
+                    pre = f"resblocks.{i * 3 + j}.{kind}.{n}"
+                    p[f"{pre}.weight"] = torch.from_numpy(
+                        rng.normal(0, 0.02, (ch, ch, kb))).float()
+                    p[f"{pre}.bias"] = torch.from_numpy(rng.normal(0, 0.1, ch)).float()
+    p["conv_post.weight"] = torch.from_numpy(rng.normal(0, 0.1, (1, ch, 7))).float()
+    x = torch.from_numpy(rng.normal(0, 0.5, (2, 5, 8))).float()
+
+    calls = []
+    for name in ("mrf_stage_unpacked", "mrf_stage_reference", "mrf_stage", "up_mrf_stage"):
+        real = getattr(tdec, name)
+        monkeypatch.setattr(tdec, name, lambda *a, _n=name, _r=real, **kw: (
+            calls.append((_n, a[0].shape[-1] if _n == "up_mrf_stage" else a[0].shape[2],
+                          kw.get("f32_storage", False) or kw.get("mixed_f32", False)))
+            or _r(*a, **kw)))
+
+    def decode(stage2=False):
+        calls.clear()
+        packed = tdec.pack_decoder(p, cfg, torch.bfloat16, hifi, stage2)
+        return tdec.decoder_apply(p, x, cfg, dtype=torch.bfloat16, hifi_tail=hifi,
+                                  pallas_stage2=stage2, packed=packed), list(calls)
+
+    got, route = decode()
+    tail = [("mrf_stage", 64, hifi >= 1), ("up_mrf_stage", 64, False)]
+    if hifi >= 2:
+        assert route == [("mrf_stage_unpacked", 256, True), ("mrf_stage_unpacked", 128, True),
+                         *tail]
+        monkeypatch.setattr(tdec, "_f32s_route", lambda *a: False)
+        former, former_route = decode()
+        assert former_route == [("mrf_stage_reference", 256, True),
+                                ("mrf_stage_reference", 128, True), *tail]
+        assert got.dtype == former.dtype and got.shape == (2, 5 * 16, 1)
+        torch.testing.assert_close(got, former, rtol=0, atol=1e-6)
+    else:
+        assert route == [("mrf_stage_reference", 256, False),
+                         ("mrf_stage_reference", 128, False), *tail]
+    # pallas_stage2: lengths off 512 keep the plain stage (mixed_f32 at hifi >= 2)
+    _, route = decode(stage2=True)
+    assert route[:2] == [("mrf_stage_reference", 256, hifi >= 2),
+                         ("mrf_stage_reference", 128, hifi >= 2)]

@@ -325,6 +325,90 @@ def test_mrf_stage_unpacked_kernel_at_lengths_off_the_mma_tiles(c, t, b):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 63, 777, "tile"])
+@pytest.mark.parametrize("c", [128, 256])
+def test_mrf_stage_unpacked_f32_storage_kernel_matches_plain(c, t):
+    """``f32_storage`` on the F32_STORAGE pair kernel (hifi >= 2's stages 1-2)
+    at B = 3 and lengths below, across and on the time tile: one launch per
+    residual pair under its own name, weights packed once give the same bits,
+    an f32 result held to the plain F32_STORAGE version. The two round the
+    same operands once to bf16, but the tensor cores' f32 sums are noisier
+    than cuDNN's: against a float64 evaluation of the same function at
+    (3, 777, C) the kernel reads 6.8e-5 / 2.7e-4 mean at C = 128 / 256, cuDNN
+    3.5e-5 / 1.9e-4 (NVIDIA H100), so an operand's rounding flips more often.
+    The mean |diff| is held under 0.75 of what the bf16 operands cost against
+    the F32 result (0.34 and 0.58 of it there), the max within that cost's
+    max or one bf16 ulp of the largest output (one flip)."""
+    rng = np.random.default_rng(c + 7)
+    if t == "tile":
+        t = 2 * tmrf.unpacked_tile(c, KS, DIL)
+    br = _branches(rng, c, KS, DIL, 0.02, torch.bfloat16)
+    x = torch.from_numpy(rng.normal(0, 0.5, (3, t, c)).astype(np.float32)).cuda()
+    before = dict(tmrf.LAUNCHES)
+    got = tmrf.mrf_stage_unpacked(x, br, KS, DIL, f32_storage=True)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in tmrf.LAUNCHES.items() if v != before[k]} == {
+        "mrf_stage_unpacked_f32s": len(KS) * len(DIL)}
+    assert torch.equal(got, tmrf.mrf_stage_unpacked(
+        x, br, KS, DIL, f32_storage=True, packed=tmrf.pack_mrf_stage(br, x.device)))
+    want = tmrf.mrf_stage_plain(x, br, KS, DIL, tmrf.F32_STORAGE)
+    assert got.dtype == want.dtype == torch.float32 and got.shape == want.shape
+    exact = tmrf.mrf_stage_plain(x, br, KS, DIL, tmrf.F32)
+    err, ref = (got - want).abs(), (want - exact).abs()
+    ulp = 2.0 ** (np.floor(np.log2(want.abs().max().item())) - 7)
+    assert torch.isfinite(got).all()
+    assert err.max().item() <= max(ref.max().item(), ulp)
+    assert t < 64 or err.mean().item() < 0.75 * ref.mean().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [128, 256])
+def test_mrf_stage_unpacked_f32_storage_kernel_is_exact_where_sums_are(c):
+    """Where every conv's sum is exact in f32 (non-negative inputs, weights
+    of one bit at 2^-8, biases and x on coarse grids, one pair a branch: the
+    leaky is the identity and every partial sum fits in 24 bits), summation
+    order cannot flip a rounding, so the F32_STORAGE kernel equals the plain
+    version bit for bit: halos, dilation, masking, the rounding points and
+    the branch mean, at a ragged length over several tiles."""
+    rng = np.random.default_rng(c)
+    ks, dil = (3, 5), (3,)
+    br = [tuple(torch.from_numpy(a.astype(np.float32)).cuda() for a in (
+        rng.integers(0, 2, (1, k, c, c)) * 2.0 ** -8, rng.integers(0, 4, (1, c)) * 2.0 ** -10,
+        rng.integers(0, 2, (1, k, c, c)) * 2.0 ** -8, rng.integers(0, 4, (1, c)) * 2.0 ** -10))
+          for k in ks]
+    t = 3 * tmrf.unpacked_tile(c, ks, dil) + 17
+    x = torch.from_numpy((rng.integers(0, 5, (2, t, c)) * 0.25).astype(np.float32)).cuda()
+    got = tmrf.mrf_stage_unpacked(x, br, ks, dil, f32_storage=True)
+    cpu = [tuple(a.cpu() for a in b) for b in br]
+    want = tmrf.mrf_stage_plain(x.cpu(), cpu, ks, dil, tmrf.F32_STORAGE)
+    assert want.abs().max().item() > 1.0
+    assert torch.equal(got.cpu(), want)
+
+
+# sha256 of the BF16 pair kernel's stage output (x (2, 300, C), the weights of
+# _branches(np.random.default_rng(C), C, KS, DIL, 0.05, bf16)) before the
+# F32_STORAGE mode was added beside it: the BF16 instantiation is unchanged
+BF16_PAIR_DIGESTS = {
+    32: "d6efb6bff3fea73768978d4767681432f9604fa642b9c00dfba7072ba924e249",
+    64: "8e917eaff644e1037301d7bafb388e2ed662685f4c1a79ad055540d7bc940fd3",
+    128: "946372494ba57f1d78a6d7e01a2d1aad350d605293172171ee5bde63bc2a9e9b",
+    256: "dc0dd8111486bd00220a0e505875c6d22d7af659e3b12ff81a05a6e2fc8236bd"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [32, 64, 128, 256])
+def test_mrf_stage_unpacked_bf16_bits_are_unchanged(c):
+    import hashlib
+
+    rng = np.random.default_rng(c)
+    br = _branches(rng, c, KS, DIL, 0.05, torch.bfloat16)
+    x = torch.from_numpy(rng.normal(0, 0.5, (2, 300, c)).astype(np.float32)).bfloat16().cuda()
+    got = tmrf.mrf_stage_unpacked(x, br, KS, DIL)
+    digest = hashlib.sha256(got.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+    assert digest == BF16_PAIR_DIGESTS[c], digest
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["f32", "bf16"])
 @pytest.mark.parametrize("one_pair", [False, True], ids=["stage", "one_pair"])
 def test_up_mrf_stage_128_to_64_kernel_matches_plain(mode, one_pair):
@@ -435,6 +519,10 @@ def test_wrappers_reject_what_the_kernels_are_not_built_for():
     br = _branches(rng, 48, KS, DIL, 0.02, torch.float32)
     with pytest.raises(ValueError):
         tmrf.mrf_stage_unpacked(torch.zeros(1, 64, 48, device="cuda"), br, KS, DIL)
+    br64 = _branches(rng, 64, KS, DIL, 0.02, torch.float32)
+    with pytest.raises(ValueError):  # F32_STORAGE is built at 128 and 256 channels
+        tmrf.mrf_stage_unpacked(torch.zeros(1, 64, 64, device="cuda"), br64, KS, DIL,
+                                f32_storage=True)
     br = _branches(rng, 48, KS, DIL, 0.02, torch.float32)
     with pytest.raises(ValueError):  # (96, 48) is not an instantiated up stage
         tmrf.up_mrf_stage(torch.zeros(1, 32, 96, device="cuda"),
@@ -820,7 +908,9 @@ def _iitp_base_vocoders(**kw):
     return hps, Vocoder(hps, state, device="cuda:0", **opts), Vocoder(hps, state, **opts, **kw)
 
 
-STAGES = {"mrf_stage": 1, "up_mrf_stage": 1}  # the kernel launches of one window or step
+# the kernel launches of one hifi-2 window or step: stages 3-4, and stages 1-2
+# on the F32_STORAGE pair kernel (9 residual pairs each)
+STAGES = {"mrf_stage": 1, "up_mrf_stage": 1, "mrf_stage_unpacked_f32s": 18}
 
 
 def _counted():
@@ -837,7 +927,7 @@ def test_window_program_replays_the_eager_window(search, monkeypatch):
     ``_infer`` called on its own, with cuDNN's search off and on; two
     windows in a row, each equal to its eager decode; a result held across a
     later replay unchanged; each replay adds the capture's tally (one launch
-    of each stage kernel) to ``LAUNCHES``."""
+    of each stage kernel, 18 of the F32_STORAGE pair kernel) to ``LAUNCHES``."""
     from smart_vocoder_torch.inference import Vocoder
     from smart_vocoder_torch.kernels import reset_launch_counts
     from smart_vocoder_torch.ops import positional_eps
@@ -871,7 +961,8 @@ def test_window_program_replays_the_eager_window(search, monkeypatch):
 def test_server_program_replays_the_eager_step():
     """An 8-row server's program at 384:96 on six streams with mixed seeds,
     noise scales and first frames and two idle rows: the replay bit-equal to
-    the eager decode of the same buffers, one launch of each stage kernel."""
+    the eager decode of the same buffers, one launch of each stage kernel and
+    18 of the F32_STORAGE pair kernel (stages 1-2), captured in the graph."""
     from smart_vocoder_torch.inference import Vocoder
     from smart_vocoder_torch.kernels import reset_launch_counts
     from smart_vocoder_torch.serving import StreamServer
@@ -949,6 +1040,7 @@ def test_vocoder_two_shards_on_one_card():
         got = two.mel_to_wav(mel, lengths, seed=5)
         counts = dict(LAUNCHES)
         assert counts["mrf_stage"] == counts["up_mrf_stage"] == 2, counts
+        assert counts["mrf_stage_unpacked_f32s"] == 2 * 18, counts
         for r in split_rows(5, 2):
             for g, w in zip(got[r], one.mel_to_wav(mel[r], lengths[r], eps=eps[r])):
                 assert np.isfinite(g).all()
