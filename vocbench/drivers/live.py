@@ -81,7 +81,7 @@ def drive(ctx: Context, server, arrivals: list[dict], noise_scale: float, window
             lateness.append(now - a["at"])
             i += 1
         if server.pending():
-            with rec.span("vb.step", max_streams=server.max_streams) as sp:
+            with rec.span("vb.step", max_streams=server.max_streams, chunk=server.chunk) as sp:
                 try:
                     out = server.step()
                 except Exception:

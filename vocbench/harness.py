@@ -23,6 +23,8 @@ from typing import Any, Optional
 
 import numpy as np
 
+from vocbench import host
+
 
 def derived_seed(seed: int, *key: int) -> int:
     """A 63-bit seed for one purpose of a run: the same ``(seed, key)``, the
@@ -123,7 +125,8 @@ def _union(intervals):
 
 class Window:
     """The measured window of a run. ``start()`` and ``stop()`` bound it;
-    with ``trace`` the device is profiled over it."""
+    with ``trace`` the device is profiled over it. The host's counters are
+    read just outside it (``host.snapshot``)."""
 
     def __init__(self, device, trace: bool):
         self.device = device
@@ -132,6 +135,7 @@ class Window:
         self._prof = None
         self._marks: list[float] = []
         self.trace: Optional[Trace] = None
+        self.host: list[dict] = []
 
     def _mark(self):
         import torch
@@ -151,11 +155,13 @@ class Window:
             self._prof = profile(activities=[ProfilerActivity.CUDA])
             self._prof.__enter__()
             self._mark()
+        self.host = [host.snapshot()]
         self.t0 = time.perf_counter()
         return self.t0
 
     def stop(self) -> float:
         self.t1 = time.perf_counter()
+        self.host.append(host.snapshot())
         if self._prof is not None:
             self._mark()
             import torch
@@ -202,9 +208,12 @@ class Context:
     t_process: float      # perf_counter at process start
     recorder: Recorder = dataclasses.field(default_factory=Recorder)
     log: Any = print
+    windows: list = dataclasses.field(default_factory=list)
 
     def window(self) -> Window:
-        return Window(self.device, self.trace)
+        w = Window(self.device, self.trace)
+        self.windows.append(w)
+        return w
 
 
 @dataclasses.dataclass

@@ -14,7 +14,9 @@ Everything is found by name from ``BENCHMARK.json`` at the checkout's root:
 - the cell (``workloads``) names its configuration and its traffic;
 - a configuration is ``vocbench/configs/<config>.json``: the model config as
   run (``train``, ``data``, ``model``, ``tpu``) with its ``source``,
-  ``reduced``, ``assumed`` and ``deployment``;
+  ``reduced``, ``assumed`` and ``deployment``; a ``deployment`` object's
+  ``torch_threads`` sets torch's intra-op threads before the program is built
+  (``host.place``);
 - a traffic mix is ``vocbench/traffic/<traffic>.json``: parameters, among
   them ``driver``, the module ``vocbench/drivers/<driver>.py`` whose
   ``run(ctx)`` makes the inputs from the seed, drives the program through the
@@ -33,9 +35,12 @@ Fixed directories: the program builds its CUDA kernels into
 ``.vocbench_cache/triton`` at the checkout's root (``TRITON_CACHE_DIR``, set
 here, before anything imports Triton). A run writes nothing else to disk
 except where a traffic mix says so (the training cell's corpus, under
-``TMPDIR``). It needs the CUDA devices the cell asks for: without them it
-exits with code 2 and prints no result; it never falls back to the CPU. It
-also exits with code 3 and no result if ``jax``, ``jaxlib``, ``flax`` or
+``TMPDIR``). Standard error also carries, before the checks, the window's
+``vb.call`` or ``vb.step`` durations and a ``host:`` line (``host.py``):
+torch's threads, and the CPU seconds and memory the run took over the window.
+A run needs the CUDA devices the cell asks for: without them it exits with
+code 2 and prints no result; it never falls back to the CPU. It also exits
+with code 3 and no result if ``jax``, ``jaxlib``, ``flax`` or
 ``smart_vocoder_tpu`` is loaded once the window has closed.
 """
 
@@ -46,8 +51,11 @@ import importlib
 import importlib.util
 import json
 import os
+import statistics
 import sys
 import time
+
+from vocbench import host
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))  # the checkout
 FORBIDDEN = ("jax", "jaxlib", "flax", "smart_vocoder_tpu")
@@ -154,6 +162,26 @@ def result_line(record, result: dict, device, count: int) -> dict:
     return out
 
 
+def print_durations(name: str, ms: list[float]) -> None:
+    """One line of a span's durations in the window: count, quartiles, the
+    tail, and the first three in order (a slow start shows there)."""
+    if not ms:
+        return
+    q = sorted(ms)
+    q1, q2, q3 = statistics.quantiles(q, n=4) if len(q) > 1 else (q[0],) * 3
+    print(f"{name}: {len(q)} in the window, ms min {q[0]:.1f} q1 {q1:.1f} median {q2:.1f} "
+          f"q3 {q3:.1f} p90 {q[int(0.9 * (len(q) - 1))]:.1f} max {q[-1]:.1f} mean "
+          f"{statistics.fmean(q):.2f}; first {' '.join(f'{x:.1f}' for x in ms[:3])}",
+          file=sys.stderr)
+
+
+def host_lines(record, threads: int) -> list[str]:
+    """A ``host:`` line for each window of the run: torch's intra-op threads
+    and the host's counters over the window."""
+    return [host.line({"torch_threads": threads, **host.window_report(*w.host)})
+            for w in record.ctx.windows if len(w.host) == 2]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
@@ -180,6 +208,7 @@ def main(argv=None) -> int:
     torch.cuda.set_device(device)
 
     ctx = make_context(cell, bench, args.seed, args.seconds, bool(args.trace), device)
+    threads = host.place(ctx.config.get("deployment"))
     record, result = execute(ctx, bench)
     bad = forbidden_modules()
     if bad:
@@ -188,11 +217,9 @@ def main(argv=None) -> int:
         return 3
     line = result_line(record, result, device, chips)
     for name in ("vb.call", "vb.step"):
-        ms = sorted(1e3 * (s.end - s.start) for s in record.named(name))
-        if ms:
-            print(f"{name}: {len(ms)} in the window, ms min {ms[0]:.1f} median "
-                  f"{ms[len(ms) // 2]:.1f} p90 {ms[int(0.9 * (len(ms) - 1))]:.1f} max {ms[-1]:.1f}",
-                  file=sys.stderr)
+        print_durations(name, [1e3 * (s.end - s.start) for s in record.named(name)])
+    for text in host_lines(record, threads):
+        print(text, file=sys.stderr)
     parts = [s for s in record.spans if s.name.startswith("setup.")]
     if parts:
         split = {"imports": parts[0].start - T_PROCESS,
