@@ -204,13 +204,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
    validation clips x sids 0 and 2: one launch each of ``up_mrf_stage`` and
    ``mrf_stage`` a call (counts reset before each) and no other kernel,
    finite mel-L1, the two sids' audio different. Prints its wall.
+16. BigVGAN-v2 at its published widths (``model.kind: "bigvgan"``, weights
+   from the benchmark's seeded rule): the fused anti-aliased SnakeBeta
+   (``aa_snake``) against torch's chain in f32 at every stage shape of a B =
+   32 call on the 1024 bucket, (32, 768, 4096) ... (32, 24, 262144), on f32
+   and bf16 input, within one bf16 rounding, each timed beside the chain;
+   one ``Vocoder.mel_to_wav`` at the cell's shapes with the launch counts
+   reset just before it: 109 ``aa_snake`` launches and no other kernel, and
+   mel-L1 against the plain reference (``vocbench/reference/bigvgan.py``)
+   under the cell's limit.
 
 Every kernel's record carries its bound: the larger of its operations over
 the card's peak for their type (989 TFLOP/s, bf16 tensor cores: every conv
 operand is a bf16 value, or a hi/lo pair of them in the F32 modes, which
 then count two passes) and its bytes (inputs read once, outputs written once)
 over 3.35 TB/s. No single PyTorch call computes an 18-conv stage, a WN stack,
-a branch backward or the gate, so ``library_ms`` is null throughout.
+a branch backward or the gate, so ``library_ms`` is null there; for
+``aa_snake`` it is torch's chain (pad, grouped transposed conv, crop,
+SnakeBeta's elementwise ops, pad, grouped conv), whose bound counts the
+activation's f32 arithmetic over the 67 TFLOP/s f32 peak.
 ``tflops`` is the record's operations over its kernel time. Times: each
 timed call runs beside its plain version (and the kernel it replaced) in
 ``ROUNDS`` interleaved rounds of a few back-to-back calls timed with CUDA
@@ -2038,6 +2050,127 @@ def convergence_tools_phase(card: str, dev) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# phase 16: BigVGAN-v2's route -- the fused anti-aliased SnakeBeta, one call at the cell's shapes
+BIGVGAN_CONFIG = os.path.join("vocbench", "configs", "bigvgan_v2_22khz_80band_256x.json")
+BIGVGAN_TRAFFIC = os.path.join("vocbench", "traffic", "batch_bigvgan.json")
+BIGVGAN_LAUNCHES = 109  # aa_snake launches a call: 18 a stage (six stages) and the tail
+PEAK_F32 = 67e12        # FLOP/s, f32 FMA outside the tensor cores (H100 SXM data sheet)
+AA_FLOPS = 24 + 24 + 2 * 5  # per input element: up filter, down filter, SnakeBeta twice
+
+
+def aa_record(x, out) -> dict:
+    """The activation's bound: its f32 arithmetic (``AA_FLOPS`` an input
+    element, as ``vocbench/flops_bigvgan.py`` counts it) over the f32 peak
+    against one read of ``x`` and one write of ``out`` over the memory rate."""
+    flops = float(AA_FLOPS * x.numel())
+    t_ops = flops / PEAK_F32 * 1e3
+    t_bytes = (x.numel() * x.element_size() + out.numel() * out.element_size()) / HBM_RATE * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "flops": flops,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def bigvgan_phase(card: str, dev) -> dict:
+    """16. BigVGAN-v2 at its published widths, weights from the benchmark's
+    seeded rule (``vocbench/weights.py`` over ``vocbench/reference/bigvgan.py``'s
+    leaves): (a) ``aa_snake`` against ``aa_snake_plain`` (torch's chain in f32,
+    TF32 off) at every stage shape of a B = 32 call on the 1024 bucket,
+    (32, 768, 4096) ... (32, 24, 262144), reading f32 (the residual stream) and
+    bf16 (a conv's output): within one bf16 rounding of the plain result (with
+    slack near zero of 2e-5 of the largest value), each timed beside the plain
+    chain; (b) one ``Vocoder.mel_to_wav`` at the cell's shapes (B = 32, 345-1000
+    frames, the 1024 bucket), the launch counts reset just before it: exactly
+    109 ``aa_snake`` launches and no other hand-written kernel, its mel-L1
+    against the plain reference under the cell's limit. Returns the kernel's
+    record, timed at the stage-1 shape on f32 input; ``library_ms`` is the
+    plain chain's time there."""
+    import torch
+
+    from smart_vocoder_torch.config import HParams, validate
+    from smart_vocoder_torch.inference import Vocoder
+    from smart_vocoder_torch.kernels import LAUNCHES, amp, reset_launch_counts
+    from smart_vocoder_torch.models.bigvgan import kaiser_sinc_filter
+    from vocbench import compare, weights
+    from vocbench.reference import bigvgan as ref
+
+    with open(os.path.join(ROOT, BIGVGAN_CONFIG)) as f:
+        cfg = json.load(f)
+    with open(os.path.join(ROOT, BIGVGAN_TRAFFIC)) as f:
+        traffic = json.load(f)
+    hps = validate(HParams(**{k: cfg[k] for k in ("data", "model", "tpu")}))
+    m = cfg["model"]
+    rows, bucket = int(traffic["batch"]), 1024
+    rng = np.random.default_rng(SEED)
+    taps = kaiser_sinc_filter().to(dev)
+
+    log(f"aa_snake vs torch's chain at BigVGAN-v2's stage shapes  [{card}]")
+    records = {}
+    t = bucket
+    for i, u in enumerate(m["upsample_rates"]):
+        t *= u
+        c = m["upsample_initial_channel"] // 2 ** (i + 1)
+        la = torch.from_numpy(rng.uniform(-0.5, 0.5, c).astype(np.float32)).to(dev)
+        lb = torch.from_numpy(rng.uniform(-0.5, 0.5, c).astype(np.float32)).to(dev)
+        act = amp.Snake(*amp.snake_coefficients(la, lb))
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn((rows, c, t), device=dev) * 3).to(dtype)
+            with compare.reference_precision():
+                want = amp.aa_snake_plain(x, act, taps)
+            got = amp.aa_snake(x, act, taps)
+            tol = want.abs() * 2.0 ** -8 + 2e-5 * want.abs().max()
+            diff = (got.float() - want).abs()
+            if not torch.isfinite(got).all() or not bool((diff <= tol).all()):
+                raise RuntimeError(f"aa_snake {tuple(x.shape)} {dtype}: outside one bf16 "
+                                   f"rounding of the plain chain (max {diff.max().item():.3e})")
+            err = diff.max().item()
+            del want, diff, tol
+            rec = {**kernel_times(lambda: amp.aa_snake(x, act, taps),
+                                  lambda: amp.aa_snake_plain(x, act, taps), 20),
+                   **aa_record(x, got), "max_abs_err": err}
+            rec["library_ms"] = rec["plain_ms"]
+            log(f"  aa_snake {tuple(x.shape)} {str(dtype)[6:]}: {rec['ms']:.4f} ms "
+                f"({rec['ms_min']:.4f}-{rec['ms_max']:.4f}), {card_span(rec)}, torch's chain "
+                f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+                f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it  [{card}]")
+            records[(c, dtype)] = rec
+            del x, got
+    torch.cuda.empty_cache()
+
+    sizes = ref.Sizes.from_config(cfg)
+    bound_log = float(cfg["seeded_weights"]["log_scale_bound"])
+    state = weights.make(ref.generator_params(sizes, bound_log), SEED, dev)
+    voc = Vocoder(hps, state, device=dev)
+    lo, hi = traffic["frames"]
+    lengths = rng.integers(lo, hi + 1, rows)
+    lengths[0] = hi
+    mel = rng.standard_normal((rows, hi, sizes.n_mels)).astype(np.float32) * 2 - 4
+    mel[np.arange(hi)[None] >= lengths[:, None]] = 0
+    voc.mel_to_wav(mel, lengths)  # warm-up: cuDNN's search, the library's load
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = voc.mel_to_wav(mel, lengths)
+    wall = time.perf_counter() - t0
+    launched = {k: v for k, v in LAUNCHES.items() if v}
+    if launched != {"aa_snake": BIGVGAN_LAUNCHES}:
+        raise RuntimeError(f"BigVGAN call: launches {launched}, expected "
+                           f"{{'aa_snake': {BIGVGAN_LAUNCHES}}}")
+    voc.close()
+    del voc
+    torch.cuda.empty_cache()
+    with compare.reference_precision():
+        want = ref.batch_call(state, sizes, mel, lengths, dev)
+    gaps = compare.waveform_gaps(got, want, cfg["data"])
+    limit = float(traffic["limits"]["mel_l1"])
+    log(f"BigVGAN mel_to_wav B = {rows}, bucket {bucket}: launches {launched}, wall "
+        f"{1e3 * wall:.1f} ms ({float(lengths.sum()) * HOP / SR / wall:.1f}x real time), "
+        f"mel-L1 vs the plain reference {gaps['mel_l1']:.5f} (limit {limit}), wav rel-L2 "
+        f"{gaps['wav_rel_l2']:.5f}  [{card}]")
+    if not gaps["mel_l1"] < limit:
+        raise RuntimeError(f"BigVGAN call: mel-L1 {gaps['mel_l1']} over the cell's {limit}")
+    first = m["upsample_initial_channel"] // 2
+    return {"launches": launched["aa_snake"], **records[(first, torch.float32)]}
+
+
 def main() -> int:
     import torch
 
@@ -2769,6 +2902,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     convergence_tools_phase(card, dev)
 
+    log(f"-- phase 16 starts at {time.time() - t_start:.0f} s")
+    # 16. BigVGAN-v2: the fused anti-aliased SnakeBeta, one call at the cell's shapes
+    torch.cuda.empty_cache()
+    aa = bigvgan_phase(card, dev)
+
     kernels = [
         {"name": "mrf_stage", "route": "cuda",
          "source": "smart_vocoder_torch/kernels/csrc/mrf_stage.cu",
@@ -2803,6 +2941,10 @@ def main() -> int:
          "source": "smart_vocoder_torch/kernels/csrc/mrf_stage.cu",
          "replaces": "scripts/exp_mrf_variants.py:159",
          "launches": launches_var["mrf_stage_variant"], **records["mrf_stage_variant"]},
+        {"name": "aa_snake", "route": "cuda",
+         "source": "smart_vocoder_torch/kernels/csrc/aa_snake.cu",
+         "replaces": "smart_vocoder_torch/models/bigvgan.py:anti_aliased_snake (torch's chain)",
+         **aa},
     ]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "ms_min",
             "ms_max", "rounds", "card_ms", "card_ms_min", "card_ms_max", "plain_ms", "bound_ms",

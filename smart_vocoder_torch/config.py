@@ -3,7 +3,8 @@
 Counterpart of ``smart_vocoder_tpu/config.py`` (JAX-free there too, copied so
 this package never imports the JAX one). A config has three blocks --
 ``train``, ``data``, ``model`` -- plus optional runtime extras under ``tpu``
-that all have defaults; the port reads ``tpu.use_pallas`` (route the decoder's
+that all have defaults. ``model.kind`` names the model (:data:`MODEL_KINDS`);
+the port reads ``tpu.use_pallas`` (route the decoder's
 last two stages to the hand-written kernels), ``tpu.hifi_tail`` and the
 training loop's extras (buckets, checkpoints kept, eval samples, profiling,
 the spectrogram cache, ``debug_nans``).
@@ -81,6 +82,10 @@ _TPU_DEFAULTS: Dict[str, Any] = {
 
 _REQUIRED_TRAIN = ["learning_rate", "betas", "eps", "batch_size", "segment_size",
                    "c_mel", "c_kl", "lr_decay", "seed"]
+# ``model.kind``: "smart" (the default: SMART-Vocoder's VAE, prior -> flow ->
+# HiFi-GAN decoder) or "bigvgan" (a generator alone, ``models/bigvgan.py``,
+# which no path trains, so its config needs no ``train`` block)
+MODEL_KINDS = ("smart", "bigvgan")
 _REQUIRED_DATA = ["sampling_rate", "filter_length", "hop_length", "win_length",
                   "n_mel_channels", "mel_fmin", "max_wav_value"]
 
@@ -94,7 +99,7 @@ def _fill_defaults(hps: HParams) -> HParams:
         if k not in tpu:
             tpu[k] = v
     if tpu.bf16_run is None:
-        tpu.bf16_run = bool(hps.train.get("fp16_run", False))
+        tpu.bf16_run = bool(hps.get("train", HParams()).get("fp16_run", False))
     if "mel_fmax" not in hps.data:
         hps.data["mel_fmax"] = None
     if "n_speakers" not in hps.data:
@@ -102,14 +107,23 @@ def _fill_defaults(hps: HParams) -> HParams:
     return hps
 
 
+def model_kind(hps: HParams) -> str:
+    """The config's ``model.kind``, "smart" where it names none."""
+    kind = hps.model.get("kind", "smart")
+    if kind not in MODEL_KINDS:
+        raise ValueError(f"config.model.kind {kind!r}: one of {MODEL_KINDS}")
+    return kind
+
+
 def validate(hps: HParams) -> HParams:
-    for key in _REQUIRED_TRAIN:
+    trains = model_kind(hps) == "smart"
+    for key in _REQUIRED_TRAIN if trains else ():
         if key not in hps.train:
             raise ValueError(f"config.train missing required key: {key}")
     for key in _REQUIRED_DATA:
         if key not in hps.data:
             raise ValueError(f"config.data missing required key: {key}")
-    if hps.train.segment_size % hps.data.hop_length != 0:
+    if trains and hps.train.segment_size % hps.data.hop_length != 0:
         raise ValueError("train.segment_size must be a multiple of data.hop_length")
     return _fill_defaults(hps)
 

@@ -42,11 +42,13 @@ from typing import Iterable, Iterator, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from smart_vocoder_torch.config import HParams, load_config
+from smart_vocoder_torch.config import HParams, load_config, model_kind
 from smart_vocoder_torch.kernels._build import load_library
+from smart_vocoder_torch.kernels.amp import amp_generator_apply, pack_amp_generator
 from smart_vocoder_torch.kernels.decoder import DecoderConfig, decoder_apply, pack_decoder
 from smart_vocoder_torch.kernels.encoder import pack_prior_flow, prior_flow_apply
-from smart_vocoder_torch.models import build_synthesizer
+from smart_vocoder_torch.models import build_bigvgan, build_synthesizer
+from smart_vocoder_torch.models.bigvgan import drop_filters
 from smart_vocoder_torch.nn import fold_weight_norm
 from smart_vocoder_torch.ops import (
     MelConfig,
@@ -76,7 +78,17 @@ def set_precision_flags() -> None:
 
 
 class Vocoder:
-    """mel (B, T, n_mels) or wav -> waveform synthesis with bucketed shapes."""
+    """mel (B, T, n_mels) or wav -> waveform synthesis with bucketed shapes.
+
+    A config of a generator-only ``model.kind`` ("bigvgan") makes a
+    :class:`GeneratorVocoder`, which shares :meth:`mel_to_wav`'s host path."""
+
+    draws_noise = True  # mel_to_wav draws the prior noise (batch_eps)
+
+    def __new__(cls, hps: HParams | None = None, *args, **kwargs):
+        if cls is Vocoder and hps is not None and model_kind(hps) != "smart":
+            cls = GeneratorVocoder
+        return super().__new__(cls)
 
     def __init__(self, hps: HParams, state_dict: Mapping[str, torch.Tensor],
                  dtype: torch.dtype = torch.bfloat16,
@@ -110,12 +122,7 @@ class Vocoder:
                 raise ValueError("pass device= or devices=, not both")
             devices = check_devices(devices)
             device = devices[0]
-        set_precision_flags()
-        self.hps = hps
-        self.device = resolve_device(device)
-        self.devices = devices or [self.device]
-        self.mel_cfg = MelConfig.from_hparams(hps)
-        self.buckets = sorted(buckets)
+        self._init_host(hps, buckets, device, devices)
         if use_kernels is None:
             use_kernels = bool(hps.tpu.get("use_pallas", False))
         self.use_kernels = bool(use_kernels and fold and hps.model.resblock == "1")
@@ -152,13 +159,6 @@ class Vocoder:
         self.wn_packed = (pack_prior_flow(self.params, **self.wn_sizes, dtype=dtype,
                                           device=self.device)
                           if self.use_wn_kernels else None)
-        # the serving programs (windows, servers) by key, their CUDA graphs in
-        # one memory pool, made at the first program on a card
-        self._programs: dict[tuple, ServingProgram] = {}
-        self._program_lock = threading.RLock()
-        self._graph_pool = None
-        self._calls = itertools.count()  # mel_to_wav's call number, a span's attr
-        self._workers = {}
         if len(self.devices) > 1:
             if (self.use_kernels or self.use_wn_kernels) and any(
                     d.type == "cuda" for d in self.devices):
@@ -175,6 +175,23 @@ class Vocoder:
             # shards find them there at every call
             self._workers = {d: ThreadPoolExecutor(1, thread_name_prefix=f"shard-{d}")
                              for d in self._replicas}
+
+    def _init_host(self, hps: HParams, buckets: Sequence[int], device, devices) -> None:
+        """What every kind's host path reads: the config, the device(s), the
+        mel front end, the buckets, the serving programs and the call count."""
+        set_precision_flags()
+        self.hps = hps
+        self.device = resolve_device(device)
+        self.devices = devices or [self.device]
+        self.mel_cfg = MelConfig.from_hparams(hps)
+        self.buckets = sorted(buckets)
+        # the serving programs (windows, servers) by key, their CUDA graphs in
+        # one memory pool, made at the first program on a card
+        self._programs: dict[tuple, ServingProgram] = {}
+        self._program_lock = threading.RLock()
+        self._graph_pool = None
+        self._calls = itertools.count()  # mel_to_wav's call number, a span's attr
+        self._workers = {}
 
     def close(self) -> None:
         """Drop the serving programs (their graphs and pool) and stop the
@@ -269,13 +286,14 @@ class Vocoder:
         with span("synth.call", call=next(self._calls), rows=b, bucket=padded_t):
             if lengths is None:
                 lengths = np.full((b,), t, np.int64)
+            eps_t = None  # a generator-only model draws none
             with span("synth.pad"):
                 mel = np.pad(mel, ((0, 0), (0, padded_t - t), (0, 0)))
                 if eps is not None:
                     eps = np.asarray(eps, np.float32)
                     eps_t = torch.from_numpy(
                         np.pad(eps, ((0, 0), (0, padded_t - eps.shape[1]), (0, 0))))
-            if eps is None:
+            if eps is None and self.draws_noise:
                 with span("synth.eps"):
                     eps_t = self.batch_eps(seed, b, padded_t)
             if len(self.devices) == 1:
@@ -299,7 +317,7 @@ class Vocoder:
         with span("synth.h2d"):
             mel_d = torch.from_numpy(mel).to(dev)
             lengths_d = torch.as_tensor(np.asarray(lengths), dtype=torch.int64, device=dev)
-            eps_d = eps.to(dev)
+            eps_d = None if eps is None else eps.to(dev)
             sid_d = None if sid is None else torch.as_tensor(np.asarray(sid), device=dev)
         o = self._infer(mel_d, lengths_d, eps_d, noise_scale, sid_d)
         return o.float().cpu().numpy()
@@ -455,3 +473,65 @@ class Vocoder:
         while start < end:  # flush the tail
             wav, start = emit(start, end)
             yield wav
+
+
+class GeneratorVocoder(Vocoder):
+    """The :class:`Vocoder` of a generator-only model (``model.kind:
+    "bigvgan"``, ``models/bigvgan.py``): ``mel_to_wav`` runs mel -> generator,
+    with no prior, no flow and no noise, through the same buckets, copies,
+    read-back, trim and ``synth.*`` spans as SMART's path (no ``synth.eps``).
+    ``noise_scale`` and ``seed`` are accepted and do nothing; a ``sid`` raises.
+
+    The generator runs ``kernels/amp.py:amp_generator_apply`` on weights
+    packed once, in the precision the config's ``tpu.bf16_run`` states (bf16
+    conv operands, the one route there is; on the CPU the activation is
+    torch's chain). The module graph is built only to check and load the
+    state dict (folded or weight-normed), then dropped. One device; the
+    windows, the ``StreamServer``, voice conversion and training are out of
+    scope and raise."""
+
+    draws_noise = False
+
+    def __init__(self, hps: HParams, state_dict: Mapping[str, torch.Tensor],
+                 dtype: torch.dtype = torch.bfloat16,
+                 buckets: Sequence[int] = (64, 128, 256, 512, 1024, 2048, 4096),
+                 device: str | torch.device | None = None,
+                 devices: Sequence[str | torch.device] | None = None):
+        kind = model_kind(hps)
+        if dtype != torch.bfloat16 or not hps.tpu.bf16_run:
+            raise ValueError(f"model.kind {kind!r} runs bf16 conv operands only: dtype bf16 "
+                             "and tpu.bf16_run true")
+        if devices is not None:
+            if device is not None or len(devices) > 1:
+                raise ValueError(f"model.kind {kind!r}: mel_to_wav on one device only")
+            device = devices[0]
+        self._init_host(hps, buckets, device, None)
+        net = build_bigvgan(hps, weight_norm=False, device=self.device)
+        net.load_state_dict(fold_weight_norm(drop_filters(state_dict)), strict=True)
+        self.packed = pack_amp_generator(net.state_dict())
+        self.dec_cfg = DecoderConfig.from_hparams(hps)
+
+    def _unsupported(self, what: str):
+        raise NotImplementedError(f"model.kind {model_kind(self.hps)!r}: {what} is not "
+                                  "supported; use mel_to_wav")
+
+    def mel_to_wav(self, mel, lengths=None, noise_scale=0.667, sid=None, seed=0, eps=None):
+        if sid is not None:
+            raise ValueError(f"model.kind {model_kind(self.hps)!r} has no speakers: "
+                             "sid must be None")
+        return super().mel_to_wav(mel, lengths, noise_scale, None, seed, None)
+
+    @torch.inference_mode()
+    def _infer(self, mel, lengths, eps, noise_scale, sid=None):
+        """mel (B, T, n_mels) -> (B, T * hop, 1)."""
+        wav = amp_generator_apply(self.packed, mel.transpose(1, 2), self.dec_cfg)
+        return wav.transpose(1, 2)
+
+    def _check_window(self, chunk, overlap):
+        self._unsupported("windowed decoding (chunks, streams, StreamServer)")
+
+    def warmup(self, chunks=None, sid=None):
+        self._unsupported("window warm-up")
+
+    def _window_call(self, *args, **kwargs):
+        self._unsupported("windowed decoding")

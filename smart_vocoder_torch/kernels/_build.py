@@ -61,6 +61,9 @@ _SIGNATURES = {
     # x, g, dx, xs, hs, dtmp, w1, b1, w2, b2, w1f, w2f, dw1, db1, dw2, db2 (all f32), B, T,
     # C, tile, k, np, d0..d2, n_launched (out), stream
     "svt_mrf_branch_bwd_fma": [_P] * 16 + [_I] * 9 + [ctypes.POINTER(_I), _P],
+    # x, out (bf16), alpha, inv_beta (f32, on the device), taps (12 f32 in host memory),
+    # rows, C, T, in_bf16, stream
+    "svt_aa_snake": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 SMEM_LIMIT = 232448  # bytes of dynamic shared memory a Hopper block may use
@@ -85,7 +88,9 @@ LAUNCHES: dict[str, int] = {"mrf_stage": 0, "up_mrf_stage": 0, "mrf_stage_unpack
                             # the f32 FMA bodies of six of the above (true-f32 weights)
                             "mrf_stage_fma": 0, "up_mrf_stage_fma": 0,
                             "mrf_stage_variant_fma": 0, "mrf_stage_unpacked_fma": 0,
-                            "wn_stack_fma": 0, "mrf_branch_bwd_fma": 0}
+                            "wn_stack_fma": 0, "mrf_branch_bwd_fma": 0,
+                            # BigVGAN's anti-aliased SnakeBeta (kernels/amp.py)
+                            "aa_snake": 0}
 _COUNT_LOCK = threading.Lock()  # a += from two threads can lose one of them
 _LOAD_LOCK = threading.Lock()   # one build and one load, whatever thread asks first
 _RECORDING = threading.local()  # .tally: the launches of a capture in this thread

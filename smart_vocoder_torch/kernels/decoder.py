@@ -76,14 +76,15 @@ class DecoderConfig:
         )
 
 
-def _conv1d(x, w, bias, padding: int, dtype, out_f32: bool = False):
+def _conv1d(x, w, bias, padding: int, dtype, out_f32: bool = False, dilation: int = 1):
     """Conv over (B, C, T) as the JAX ``_conv1d`` rounds it: operands in
     ``dtype``; a bf16 conv rounds its output and then its bias add, while
     ``out_f32`` keeps bf16 operands with an f32 result and f32 bias."""
     if dtype == torch.float32 or out_f32:
-        y = F.conv1d(x.to(dtype).float(), w.to(dtype).float(), padding=padding)
+        y = F.conv1d(x.to(dtype).float(), w.to(dtype).float(), padding=padding,
+                     dilation=dilation)
         return y if bias is None else y + bias.float()[:, None]
-    y = F.conv1d(x.to(dtype), w.to(dtype), padding=padding)
+    y = F.conv1d(x.to(dtype), w.to(dtype), padding=padding, dilation=dilation)
     return y if bias is None else y + bias.to(dtype)[:, None]
 
 

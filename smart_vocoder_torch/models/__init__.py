@@ -1,5 +1,9 @@
 """Model layer (counterpart of ``smart_vocoder_tpu/models``): the synthesizer
-and the discriminator ensemble."""
+and the discriminator ensemble; BigVGAN-v2's generator (``model.kind:
+"bigvgan"``), which the JAX package does not have."""
+
+from smart_vocoder_torch.config import model_kind
+from smart_vocoder_torch.models.bigvgan import BigVGAN, build_bigvgan
 
 from smart_vocoder_torch.models.discriminator import (
     DiscriminatorP,
@@ -17,7 +21,12 @@ from smart_vocoder_torch.models.synthesizer import (
 
 def build_synthesizer(hps, weight_norm: bool = True, device=None) -> SynthesizerTrn:
     """Construct from an HParams config as train.py:82-86 does; ``segment_size``
-    is the training slice in frames (``train.segment_size // hop_length``)."""
+    is the training slice in frames (``train.segment_size // hop_length``).
+    A generator-only kind raises: it has no prior, flow or posterior."""
+    if model_kind(hps) != "smart":
+        raise ValueError(f"model.kind {model_kind(hps)!r} is a generator alone: it has no "
+                         "prior, flow or posterior, so no training step or voice conversion; "
+                         "build it with build_bigvgan and serve it through Vocoder.mel_to_wav")
     return SynthesizerTrn(
         spec_channels=hps.data.filter_length // 2 + 1,
         inter_channels=hps.model.inter_channels,
@@ -52,6 +61,7 @@ def build_discriminator(hps, device=None) -> MultiPeriodDiscriminator:
 
 
 __all__ = [
+    "BigVGAN",
     "DiscriminatorP",
     "DiscriminatorS",
     "Generator",
@@ -60,6 +70,7 @@ __all__ = [
     "PosteriorEncoder",
     "ResidualCouplingBlock",
     "SynthesizerTrn",
+    "build_bigvgan",
     "build_discriminator",
     "build_synthesizer",
 ]
